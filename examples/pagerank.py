@@ -1,7 +1,7 @@
-"""PageRank as repeated SpMV on TPU.
+"""PageRank as repeated SpMV.
 
 The canonical SpMV application (and the workload class — power-law
-web/social graphs — the merge/stream kernels are designed for, ref:
+web/social graphs — the merge-path kernel is designed for, ref:
 include/spmv/merge_based/agent_spmv_orig.cuh:1-27's scale-free
 motivation). rank_{t+1} = d * P^T rank_t + teleport, with P the
 row-stochastic out-link matrix; dangling mass is redistributed
@@ -11,7 +11,7 @@ Every iteration is ONE registry SpMV dispatch (pick the kernel with
 --kind); the iteration loop is jit-free host code because each step's
 device work is a single fused call.
 
-Usage: python examples/pagerank.py [--kind stream] [--nodes 100000]
+Usage: python examples/pagerank.py [--kind merge] [--nodes 100000]
 """
 
 import argparse
@@ -52,7 +52,7 @@ def pagerank(A_t, out_deg, kind: str, damping=0.85, tol=1e-8,
 
 def main():
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--kind", default="stream")
+    p.add_argument("--kind", default="merge")
     p.add_argument("--nodes", type=int, default=100_000)
     p.add_argument("--edges", type=int, default=1_000_000)
     p.add_argument("--damping", type=float, default=0.85)

@@ -2,8 +2,8 @@
 
 Builds the standard 5-point Laplacian on an m x m grid as CSR,
 solves A x = b with the library's conjugate-gradient solver (the
-matvec dispatches through the kernel registry; pass --kind stream on
-a TPU for the flagship kernel), and reports iterations/residuals
+matvec dispatches through the kernel registry; pass kind merge for
+the merge-path kernel), and reports iterations/residuals
 with and without preconditioning.
 
 Run: python examples/solve_poisson.py [m] [kind]

@@ -1,4 +1,4 @@
-"""spmv_tpu — a TPU-native sparse linear-algebra framework.
+"""spmv_tpu — a sparse linear-algebra library on JAX, for NVIDIA Hopper.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capability set of the CUDA
 kernel zoo in peakcrosser7/spmv-samples (reference: /root/reference):
@@ -10,13 +10,14 @@ kernel zoo in peakcrosser7/spmv-samples (reference: /root/reference):
 - A CPU oracle, plain and semiring-generalized
   (ref: include/spmv/cpu_navie.hpp:3-35)
 - A string-dispatched kernel registry (ref: include/spmv.h:18-27)
-- A zoo of TPU Pallas SpMV kernels covering the reference's strategy
-  space: row-parallel, csr-vector (lanes-per-row), binned/dynamic row
-  scheduling (LightSpMV analog), and merge-path with cross-tile carries
-  (CUB merge analog), all generalized over semirings.
+- The reference's SpMV kind names, each running one of three
+  implementations: a merge-path Pallas kernel for Hopper (equal-nnz
+  tiles, in-tile reduce-by-key, atomic fix-up of rows that cross tiles;
+  the CUB merge analog), the plain XLA path, or DIA for banded
+  matrices; all generalized over semirings.
 - A benchmark harness with correctness deltas and roofline-audited
   timing (ref: main.cu:84-113).
-- A multi-chip distribution layer (mesh + shard_map) that the
+- A multi-device distribution layer (mesh + shard_map) that the
   single-GPU reference does not have.
 """
 

@@ -1,18 +1,20 @@
-"""Benchmark CLI: the reference's main.cu rebuilt for TPU.
+"""Benchmark CLI: the reference's main.cu rebuilt on JAX.
 
 Reference flow (ref: main.cu:21-124): load .mtx → CSR → device copy →
-CPU oracle → per-kind correctness delta → per-kind 2000-iteration
-timing → report. This harness reproduces that report shape, with TPU-
-honest timing (see utils/timing.py) and roofline columns
-(Gnnz/s, GFLOP/s, achieved-vs-speed-of-light).
+CPU oracle → per-kind correctness delta → per-kind timing → report.
+This harness reproduces that report shape: each row names the kind,
+the implementation it ran (hopper / plain / dia) and the platform, with
+the median of warmed calls (see utils/timing.py) and roofline columns
+(Gnnz/s, GFLOP/s, share of the byte floor on a GPU). A kind that fails
+is reported and makes the CLI exit non-zero after the report.
 
 Usage:
     python -m spmv_tpu.bench.harness MATRIX [kind ...]
     python -m spmv_tpu.bench.harness --synthetic powerlaw --nnz 4000000 merge xla
 
 MATRIX is a .mtx path, or use --synthetic {banded,random,powerlaw,kron}.
-Default kinds = every registered device kind (ref: main.cu runs the
-kinds named on the CLI, ref: main.cu:22-25).
+Default kinds = one per implementation: xla (plain), merge (hopper),
+dia (ref: main.cu runs the kinds named on the CLI, main.cu:22-25).
 """
 
 from __future__ import annotations
@@ -29,24 +31,8 @@ from spmv_tpu.io.generate import banded_csr, kron_graph_csr, power_law_csr, rand
 from spmv_tpu.io.matrix_market import read_matrix_market
 from spmv_tpu.ops.reference import correctness_delta
 from spmv_tpu.utils.timing import benchmark_spmv
-from spmv_tpu.utils.roofline import chip_specs
 
-DEFAULT_KINDS = [
-    "xla",
-    "csr_scalar",
-    "csr_vector",
-    "csr_vector_shfl",
-    "csr_vector_shfl2",
-    "csr_vector_ell",
-    "light_vec",
-    "light_warp",
-    "light_vec_ell",
-    "merge_stock",
-    "merge",
-    "merge_genl",
-    "merge_tiled",
-    "stream",
-]
+DEFAULT_KINDS = ["xla", "merge", "dia"]
 
 
 def load_matrix(args) -> "spmv_tpu.CSR":
@@ -76,19 +62,9 @@ def main(argv=None):
     p.add_argument("--rows", type=int, default=1 << 20)
     p.add_argument("--nnz", type=int, default=1 << 23)
     p.add_argument("--alpha", type=float, default=1.5)
-    p.add_argument("--iters", type=int, default=50)
+    p.add_argument("--iters", type=int, default=20)
     p.add_argument("--no-check", action="store_true")
     p.add_argument("--json", action="store_true", help="emit JSON lines")
-    p.add_argument("--autotune", metavar="TABLE.json", nargs="?",
-                   const="", default=None,
-                   help="refit the stream tile policy on this matrix "
-                        "before benchmarking (the runtime analog of the "
-                        "reference's per-arch policy tables); optional "
-                        "path persists/loads the fitted table")
-    p.add_argument("--plan-dir", metavar="DIR", default=None,
-                   help="on-disk plan cache: build each matrix's "
-                        "stream plan once, reload on later runs "
-                        "(utils/plancache)")
     p.add_argument("--trace", metavar="DIR", default=None,
                    help="capture a jax.profiler trace of each kind's "
                         "timing loop into DIR (one subdir per kind; "
@@ -112,43 +88,23 @@ def main(argv=None):
     if bad:
         raise SystemExit(f"unknown kinds {bad}; valid: {list_kinds(include_aliases=True)}")
 
-    if args.plan_dir:
-        from spmv_tpu import config
-
-        config.set_plan_dir(args.plan_dir)
+    import jax
 
     A = load_matrix(args)
-    chip, bw = chip_specs()
+    dev = jax.devices()[0]
     print(f"matrix: {A.n_rows} x {A.n_cols}, nnz={A.nnz} "
-          f"(mean {A.mean_nnz_per_row:.2f}/row)  chip={chip} ({bw:.0f} GB/s)",
-          file=sys.stderr)
+          f"(mean {A.mean_nnz_per_row:.2f}/row)  device={dev.platform} "
+          f"{dev.device_kind} x{len(jax.devices())}", file=sys.stderr)
 
     rng = np.random.default_rng(0)
     x = (np.ones(A.n_cols, np.float32) if args.x == "ones"
          else rng.standard_normal(A.n_cols).astype(np.float32))
 
-    from spmv_tpu.ops import tuning
-
-    if args.autotune is not None:
-        fields, sweep = tuning.autotune_stream(A, x, iters=args.iters)
-        tuning.set_active(fields)
-        print(f"autotuned stream policy: {fields}", file=sys.stderr)
-        tuning.save_table(fields,
-                          args.autotune or tuning.default_table_path())
-    else:
-        # pick up a previously persisted autotune result for this chip
-        loaded = tuning.load_table(tuning.default_table_path())
-        if loaded:
-            print(f"loaded persisted tuning table: {loaded}",
-                  file=sys.stderr)
-
-    results = []
+    results, failed = [], []
     for kind in kinds:
         try:
             if args.trace:
                 import os
-
-                import jax
 
                 with jax.profiler.trace(os.path.join(args.trace, kind)):
                     r = benchmark_spmv(kind, A, x, iters=args.iters,
@@ -158,12 +114,15 @@ def main(argv=None):
                                    check=not args.no_check)
         except Exception as e:  # keep the report going, like the ref CLI
             print(f"{kind:18s} FAILED: {type(e).__name__}: {e}", file=sys.stderr)
+            failed.append(kind)
             continue
         results.append(r)
         if args.json:
             print(json.dumps(dataclass_to_dict(r)))
         else:
             print(r.row())
+    if failed:
+        raise SystemExit(f"failed kinds: {failed}")
     return results
 
 
@@ -174,4 +133,7 @@ def dataclass_to_dict(r):
 
 
 if __name__ == "__main__":
+    from spmv_tpu import config
+
+    config.enable_compile_cache()
     main()

@@ -1,6 +1,6 @@
 """Sparse matrix containers: COO and CSR.
 
-TPU-native re-design of the reference's host containers
+A re-design of the reference's host containers
 (ref: include/load.hpp:131-161). The reference parameterizes its whole
 API over five independent types — ``index_t, offset_t, mat_value_t,
 vec_x_value_t, vec_y_value_t`` (ref: include/spmv.h:29-34); here that

@@ -1,31 +1,19 @@
-"""TPU kernel zoo. Importing this package registers all built-in kinds.
+"""SpMV kinds. Importing this package registers all built-in kinds.
 
-Strategy map (reference kind → TPU-native kind):
+Every device kind runs one of three implementations, and
+`spmv_tpu.ops.registry.implementation` says which one a call gets:
 
-| reference (spmv.h:18-27)      | spmv_tpu kind        | strategy                         |
-|-------------------------------|----------------------|----------------------------------|
-| cpu (oracle, main.cu:79-81)   | ``cpu_naive``        | NumPy row loop (host)            |
-| ``cusparse`` (vendor lib)     | ``xla``              | XLA gather + sorted segment_sum  |
-| ``cusp``                      | ``csr_vector``       | lanes-per-row ELL tiles, dense   |
-|                               |                      | lane reduce                      |
-| ``cusp1``                     | ``csr_vector_shfl``  | same tiles, log-step shuffle     |
-|                               |                      | (roll) tree reduction            |
-| ``cusp2``                     | ``csr_vector_shfl2`` | shuffle reduce + shuffled offset |
-|                               |                      | broadcast analog                 |
-| ``light_vec``                 | ``light_vec``        | row binning by nnz (fine bins),  |
-|                               |                      | per-bin packed kernels           |
-| ``light_warp``                | ``light_warp``       | row binning, coarse bins         |
-| ``cub_merge``                 | ``merge_stock``      | merge-path, default policy       |
-| ``merge``                     | ``merge``            | merge-path, tuned policy         |
-| ``merge_genl``                | ``merge_genl``       | merge-path over a Semiring       |
-| (beyond the reference)        | ``stream``           | gather pass + planned shuffle +  |
-|                               |                      | segmented scan (flagship; see    |
-|                               |                      | docs/DESIGN_stream.md)           |
+| implementation | kinds                                  | module        |
+|----------------|----------------------------------------|---------------|
+| ``hopper``     | merge*, csr_*, light_*, stream         | ``merge.py``  |
+| ``plain``      | ``xla`` (alias ``cusparse``); any kind | ``baseline``  |
+|                | for dtypes and semirings the merge-    |               |
+|                | path kernel does not serve             |               |
+| ``dia``        | ``dia`` on diagonal-sparse matrices    | ``dia.py``    |
+
+``cpu_naive`` runs the host oracle and ``dense`` a dense matvec.
 """
 
 from spmv_tpu.kernels import baseline  # noqa: F401  (registers cpu_naive, xla, dense)
-from spmv_tpu.kernels import csr_vector  # noqa: F401
 from spmv_tpu.kernels import dia  # noqa: F401
-from spmv_tpu.kernels import light  # noqa: F401
 from spmv_tpu.kernels import merge  # noqa: F401
-from spmv_tpu.kernels import stream  # noqa: F401

@@ -1,17 +1,15 @@
-"""DIA (diagonal-format) SpMV: the regular-matrix speed-of-light kind.
+"""DIA (diagonal-format) SpMV for banded and stencil matrices.
 
 Banded/stencil matrices (BASELINE.md config 2's regular regime) are
 structurally shifts: y[r] = Σ_d A[r, r+d] * x[r+d] over a small set
-of diagonals d. On TPU that is ELEMENTWISE — no gathers, no column
-indices, no routing: one fused pass over n_diags value streams and
-shifted x slices, at streaming bandwidth. The CSR SoL model charges
-12 B/nnz (Ax + Aj + x-gather); DIA moves ~8 B/nnz (Aj is implicit),
-so this kind can honestly exceed "100% of CSR speed-of-light".
+of diagonals d. That is elementwise: no gathers and no column indices,
+one fused pass over n_diags value streams and shifted x slices. The
+CSR byte model charges 12 B/nnz (Ax + Aj + x-gather); DIA moves about
+8 B/nnz, since Aj is implicit.
 
 The reference has no DIA kind (its zoo is CSR-only); this is a
-beyond-reference format specialization (SURVEY §7 step 5 spirit),
-auto-selected by the csr_vector family for diagonal-sparse matrices
-and silently falling back to the stream pipeline otherwise.
+beyond-reference format specialization (SURVEY §7 step 5 spirit).
+Matrices that are not diagonal-sparse run the plain path.
 
 Semiring-generalized like every kind: y[r] = reduce_d combine(Ad, xs)
 with absent diagonal slots masked to the identity.
@@ -26,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from spmv_tpu.formats import CSR
+from spmv_tpu.kernels.baseline import plain_spmv
 from spmv_tpu.ops.registry import register, plan_cache, resolve_val_dtype
 from spmv_tpu.ops.semiring import Semiring, PLUS_TIMES
 
@@ -67,15 +66,16 @@ def build_dia_plan(A: CSR, diags: np.ndarray):
     # matching coo_to_csr's duplicate policy)
     np.add.at(vals, (k, rows), Ax)
     valid[k, rows] = 1
-    return jnp.asarray(vals), jnp.asarray(valid), tuple(
-        int(x) for x in diags)
+    # concrete device arrays even when first asked for under a trace
+    with jax.ensure_compile_time_eval():
+        return jnp.asarray(vals), jnp.asarray(valid), tuple(
+            int(x) for x in diags)
 
 
 @functools.partial(jax.jit, static_argnames=("sr", "diags", "n_rows"))
-def _dia_matvec_xla(vals, valid, x, *, sr: Semiring, diags, n_rows):
-    """XLA fallback (any diagonal offsets): one shifted-slice pass per
-    diagonal. Re-reads the y accumulator per diagonal, so the Pallas
-    kernel below is ~3x leaner where its halo gate permits."""
+def _dia_matvec(vals, valid, x, *, sr: Semiring, diags, n_rows):
+    """One shifted-slice pass per diagonal; XLA fuses them into one
+    elementwise pass over the value lanes."""
     val_dtype = vals.dtype
     ident = sr.identity_for(np.dtype(val_dtype))
     lo = -min(min(diags), 0)
@@ -89,122 +89,23 @@ def _dia_matvec_xla(vals, valid, x, *, sr: Semiring, diags, n_rows):
     return y
 
 
-LANES = 128
-BLK = 64          # y rows of (64, 128) per grid step = 8192 elements
-MAX_SHIFT = 8000  # |diagonal| the 3-block halo covers
-
-
-def _dia_kernel(sr: Semiring, identity: float, diags, D: int):
-    from jax.experimental.pallas import tpu as pltpu
-
-    def kernel(vals_ref, valid_ref, x0_ref, x1_ref, x2_ref, out_ref):
-        X = jnp.concatenate([x0_ref[...], x1_ref[...], x2_ref[...]],
-                            axis=0)
-        li = jax.lax.broadcasted_iota(jnp.int32, (BLK, LANES), 1)
-        y = jnp.full((BLK, LANES), identity, out_ref.dtype)
-        for i, d in enumerate(diags):
-            # X covers x-space [block_start - BLK*LANES, +2*BLK*LANES)
-            s = d + BLK * LANES
-            q, m = divmod(s, LANES)
-            a1 = X[q:q + BLK, :]
-            if m == 0:
-                xs = a1
-            else:
-                a2 = X[q + 1:q + 1 + BLK, :]
-                xs = jnp.where(li < LANES - m,
-                               pltpu.roll(a1, LANES - m, 1),
-                               pltpu.roll(a2, LANES - m, 1))
-            vd = vals_ref[i * BLK:(i + 1) * BLK, :]
-            ok = valid_ref[i * BLK:(i + 1) * BLK, :].astype(jnp.int32)
-            t = jnp.where(ok > 0, sr.combine(vd, xs),
-                          jnp.full_like(y, identity))
-            y = sr.reduce(y, t)
-        out_ref[...] = y
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "sr", "diags", "n_rows", "interpret"))
-def _dia_matvec_pallas(vals, valid, x, *, sr: Semiring, diags, n_rows,
-                       interpret):
-    """Fused DIA pass: per (64,128) y block, read the per-diagonal
-    value lanes + a 3-block x window (the ±MAX_SHIFT halo) and fold
-    every diagonal in registers — one read of vals/valid, ~3 reads of
-    x, one write of y."""
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    val_dtype = vals.dtype
-    identity = float(sr.identity_for(np.dtype(val_dtype)))
-    D = vals.shape[0]
-    lo = -min(min(diags), 0)
-    hi = max(max(diags), 0)
-    n_pad = -(-n_rows // (BLK * LANES)) * (BLK * LANES)
-    T = n_pad // (BLK * LANES)
-    # xp covers x-space [-BLK*LANES, n_pad + BLK*LANES): one zero
-    # block on each side so every diagonal's 3-block window is in
-    # bounds (junk values are masked by `valid`)
-    xp = jnp.pad(x.astype(val_dtype),
-                 (BLK * LANES, n_pad + BLK * LANES - n_rows))
-    xp2d = xp.reshape(-1, LANES)
-    # per-step diag-major blocks: step t's rows are
-    # [d0 rows t*BLK..t*BLK+BLK) ; d1 rows ...] (kernel indexes
-    # vals_ref[i*BLK + r])
-    vals_p = jnp.pad(vals, ((0, 0), (0, n_pad - n_rows))).reshape(
-        D, T, BLK, LANES)
-    valid_p = jnp.pad(valid, ((0, 0), (0, n_pad - n_rows))).reshape(
-        D, T, BLK, LANES)
-    vals_f = vals_p.transpose(1, 0, 2, 3).reshape(-1, LANES)
-    valid_f = valid_p.transpose(1, 0, 2, 3).reshape(-1, LANES)
-
-    grid_spec = pl.GridSpec(
-        grid=(T,),
-        in_specs=[
-            pl.BlockSpec((D * BLK, LANES), lambda t: (t, 0)),
-            pl.BlockSpec((D * BLK, LANES), lambda t: (t, 0)),
-            pl.BlockSpec((BLK, LANES), lambda t: (t, 0)),
-            pl.BlockSpec((BLK, LANES), lambda t: (t + 1, 0)),
-            pl.BlockSpec((BLK, LANES), lambda t: (t + 2, 0)),
-        ],
-        out_specs=pl.BlockSpec((BLK, LANES), lambda t: (t, 0)),
-    )
-    del lo, hi
-    y = pl.pallas_call(
-        _dia_kernel(sr, identity, diags, D),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_pad // LANES, LANES),
-                                       val_dtype),
-        interpret=interpret,
-    )(vals_f, valid_f, xp2d, xp2d, xp2d)
-    return y.reshape(-1)[:n_rows]
+def _profile(A: CSR):
+    return plan_cache(A, ("dia", "profile"), lambda: diag_profile(A))
 
 
 @register("dia", supports_semiring=True,
           reference_analog="(none — beyond-reference diagonal-format "
-                           "specialization for regular matrices)")
+                           "specialization for regular matrices)",
+          implementation=lambda A, val_dtype, sr:
+              "plain" if _profile(A) is None else "dia")
 def _dia(A: CSR, x, *, semiring: Semiring = PLUS_TIMES):
-    """DIA SpMV for diagonal-sparse matrices; non-diagonal matrices
-    fall back to the stream pipeline (so the kind is total, like the
-    merge family's fallbacks)."""
-    from spmv_tpu import config
-
-    prof = plan_cache(A, ("dia", "profile"), lambda: diag_profile(A))
+    """DIA SpMV for diagonal-sparse matrices; other matrices run the
+    plain path, so the kind is total."""
+    prof = _profile(A)
     if prof is None:
-        from spmv_tpu.kernels.stream import _stream_spmv
-        from spmv_tpu.ops.tuning import policy_for
-
-        width = np.dtype(np.asarray(A.Ax).dtype).itemsize
-        return _stream_spmv(A, x, semiring, policy_for(width))
-    diags, _ = prof
+        return plain_spmv(A, x, semiring)
     vals, valid, dtup = plan_cache(
-        A, ("dia", "plan"), lambda: build_dia_plan(A, diags))
-    x = jnp.asarray(x)
+        A, ("dia", "plan"), lambda: build_dia_plan(A, prof[0]))
     val_dtype = resolve_val_dtype(A, x)
-    if max(abs(d) for d in dtup) <= MAX_SHIFT:
-        return _dia_matvec_pallas(
-            vals.astype(val_dtype), valid, x, sr=semiring, diags=dtup,
-            n_rows=A.n_rows, interpret=config.use_interpret())
-    return _dia_matvec_xla(vals.astype(val_dtype), valid, x,
-                           sr=semiring, diags=dtup, n_rows=A.n_rows)
+    return _dia_matvec(vals.astype(val_dtype), valid, jnp.asarray(x),
+                       sr=semiring, diags=dtup, n_rows=A.n_rows)

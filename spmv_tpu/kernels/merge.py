@@ -1,635 +1,244 @@
-"""Merge-path SpMV — the centerpiece kernel, rebuilt TPU-native.
+"""Merge-path SpMV for Hopper: one Pallas kernel through Triton.
 
 Reference: the vendored CUB merge-based SpMV
-(ref: include/spmv/merge_based/*, 2,257 LoC) and its semiring
-generalization (ref: include/spmv/merge_genl/*). The CUDA design:
-split the merged sequence of (row-ends × nonzeros) into equal tiles,
-each thread block walks its tile with an accumulate-or-reset loop,
-block-wide reduce-by-key scan, and a decoupled-lookback fixup pass for
-rows spanning tiles (ref: dispatch_spmv_orig.cuh:533-769,
-agent_spmv_orig.cuh:120-760, agent_segment_fixup.cuh).
+(ref: include/spmv/merge_based/*) and its semiring generalization
+(ref: include/spmv/merge_genl/*). The CUDA design splits the nonzeros
+into equal tiles, reduces by key inside each tile, and repairs the rows
+that cross tiles in a fix-up pass (ref: agent_spmv_orig.cuh:120-760,
+agent_segment_fixup.cuh). Equal-nnz tiles are what a scale-free matrix
+needs: one row may hold a third of all nonzeros, which would pin a
+row-per-block kernel to one SM and make per-nonzero atomics collide on
+one address.
 
-The TPU re-design (NOT a translation):
+Here each program owns TILE consecutive nonzeros:
 
-- The per-thread binary search along merge diagonals
-  (ref: thread_search.cuh:10-49) moves to **plan time on the host**:
-  a greedy merge split bounds both nnz-per-tile (EN) and
-  rows-per-tile (RW), the two tuning knobs of the policy table analog
-  (ref: dispatch_spmv_orig.cuh:266-427).
-- The divergent accumulate-or-reset walk + BlockScan reduce-by-key
-  (ref: agent_spmv_orig.cuh:340-404) becomes a fully vectorized
-  **segmented scan** over (sublane, lane) tiles, followed by a
-  row-end **gather** of scan values (positions precomputed from Ap at
-  plan time).
-- The decoupled-lookback cross-tile fixup
-  (ref: agent_segment_fixup.cuh:277-358) is unnecessary on TPU: the
-  Pallas grid is sequential on a core, so a **carry register in SMEM
-  scratch** propagates partial row sums tile-to-tile in one pass —
-  each tile folds the carry into its first row and the *last* tile
-  touching a row owns its final value.
-- The scattered per-row writeback becomes a dense per-tile row-window
-  write; a final XLA **gather** (ownership map precomputed at plan
-  time) assembles y with zero scatter traffic.
-- Semiring generalization threads `(initialize, combine, reduce)`
-  through every site — products, scan, carry fold, carry update —
-  matching the reference's functor_t reach, including its AtomicReduce
-  fixup analog (ref: merge_genl/agent_segment_fixup.cuh:56-86), which
-  here is simply the carry fold using `reduce`.
+- it loads its slice of the per-nnz row ids, column indices and values
+  with masked loads (the last tile is ragged), gathers x (which at real
+  sizes sits in the 50 MB L2) and applies the ring's ``combine``;
+- it reduces by key with a pairwise tree: at every level adjacent
+  blocks merge their (first row, last row) partials, and a row that
+  becomes complete inside the tile is stored straight to y;
+- the tile's first and last rows may continue in the neighbouring
+  tiles, so they go to y through atomics, into a y pre-filled with the
+  ring's identity. Blocks run unordered, so this replaces both the
+  reference's decoupled look-back and the carry chain a sequential grid
+  allowed.
+
+No nnz-sized intermediate is written to device memory, and a hub row
+costs one atomic per tile, not one per nonzero.
+
+Float min and max have no hardware atomic. For those rings y travels as
+order-preserving int32 keys, whose signed integer order is the float
+order, so integer atomic min/max apply.
+
+The kernel serves the four built-in rings over float32, bfloat16 and
+float16 values, accumulating in float32. Other dtypes and user-defined
+semirings run the plain path; `ops.registry.implementation` says which
+one a call gets.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import functools
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from spmv_tpu import config
 from spmv_tpu.formats import CSR
-from spmv_tpu.ops.registry import register, plan_cache, resolve_val_dtype
-from spmv_tpu.ops.semiring import Semiring, PLUS_TIMES
-from spmv_tpu.kernels.pallas_utils import (
-    LANES,
-    flat_iota,
-    route3_batched,
-    segmented_scan_tile,
-    sublane_iota,
-)
+from spmv_tpu.kernels.baseline import device_csr, plain_spmv
+from spmv_tpu.ops.registry import register, resolve_val_dtype
+from spmv_tpu.ops.semiring import (
+    Semiring, PLUS_TIMES, MIN_PLUS, MAX_TIMES, OR_AND)
+
+# Nonzeros per program and warps per program, chosen on the H100
+# (PERF.md "Kernel decisions").
+TILE = 2048
+NUM_WARPS = 4
+
+# ring -> the atomic that folds a boundary row's partial into y
+_ATOMICS = {
+    PLUS_TIMES: plgpu.atomic_add,
+    MIN_PLUS: plgpu.atomic_min,
+    MAX_TIMES: plgpu.atomic_max,
+    OR_AND: plgpu.atomic_max,
+}
+_VALUE_DTYPES = tuple(np.dtype(d) for d in
+                      (jnp.float32, jnp.bfloat16, jnp.float16))
+_INT32_MAX = np.iinfo(np.int32).max
 
 
-@dataclasses.dataclass(frozen=True)
-class MergePolicy:
-    """Tile-shape policy: the per-arch tuning table analog
-    (ref: dispatch_spmv_orig.cuh:266-427, SM60 = 128×7 etc.)."""
-
-    nnz_per_tile: int = 2048  # EN, multiple of 8*128
-    rows_per_tile: int = 1024  # RW, multiple of 8*128
-
-    def __post_init__(self):
-        assert self.nnz_per_tile % LANES == 0
-        assert self.rows_per_tile % LANES == 0
+def ring_and_dtype_served(val_dtype, semiring: Semiring) -> bool:
+    """True when the kernel has an atomic for the ring and a load for
+    the value dtype."""
+    return semiring in _ATOMICS and np.dtype(val_dtype) in _VALUE_DTYPES
 
 
-# "stock" = the untuned default, standing in for cub_merge's use of the
-# library defaults (ref: cub_merge.cuh:16-55); "tuned" is the policy
-# the tuning layer refits per TPU generation / matrix statistics.
-STOCK_POLICY = MergePolicy(nnz_per_tile=1024, rows_per_tile=1024)
-TUNED_POLICY = MergePolicy(nnz_per_tile=2048, rows_per_tile=1024)
+def kernel_serves(A: CSR, val_dtype, semiring: Semiring) -> bool:
+    """True when the merge-path kernel runs this product; False sends
+    it to the plain path."""
+    return (ring_and_dtype_served(val_dtype, semiring)
+            and max(A.nnz, A.n_rows, A.n_cols) < _INT32_MAX - TILE)
 
 
-@dataclasses.dataclass
-class MergePlan:
-    """Host-precomputed merge schedule for one (matrix, policy)."""
-
-    policy: MergePolicy
-    n_tiles: int
-    # Device arrays:
-    aj_tiles: jax.Array  # (T_pad, EN) int32, padded column indices
-    ax_tiles: jax.Array  # (T_pad, EN) values, padded
-    rel_tiles: jax.Array  # (T_pad, S, 128) int32 local row ids (non-decreasing)
-    pend_tiles: jax.Array  # (T_pad, P, 128) int32 row-end flat positions, -1 = none
-    r_start: jax.Array  # (T_pad,) int32 first global row of tile
-    lrow: jax.Array  # (T_pad,) int32 last global row touched by tile
-    cnt: jax.Array  # (T_pad,) int32 valid nnz in tile
-    owner_idx: jax.Array  # (n_rows,) int32 flat index into (T_pad*RW [+1 pad]) output
-    # planned paged gather for the phase-A x read (None = XLA jnp.take,
-    # the round-4 0.12 G elems/s cliff; VERDICT r4 item 2)
-    pgather: object = None
-    # planned row-end extraction routes per 128-row tile group (round
-    # 5: replaces the O(S) gather_flat select chain; liveness rides
-    # bit 7 of the last stage) — None on legacy/native-less plans
-    pr1: object = None
-    pr2: object = None
-    pr3: object = None
-    # planned paged gather for phase C's ownership map (the XLA
-    # element gather over n_rows was ~8 ms/M rows); owner streams are
-    # near-contiguous so the sweep skips almost every window. Empty
-    # rows are -1 in the planned stream (they'd all duplicate the one
-    # identity-pad index and blow the bucket-round cap) and get the
-    # identity back through owner_valid.
-    pgather_y: object = None
-    owner_valid: object = None  # (n_rows,) bool, False = empty row
+def _order_key(bits):
+    """int32 bits of a float32 <-> int32 whose signed order is the float
+    order. The map is its own inverse."""
+    return jnp.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
 
 
-def _pad_merge_tiles(aj, ax, rel, pend, r_start, lrow, cnt, sbt):
-    """Pad the tile count to the kernel's sbt group granule. Pad tiles
-    are empty (cnt 0, pend -1, r_start -2 so no carry fold matches);
-    they sit at the END so the carry chain over real tiles is
-    unaffected and their output rows are identity."""
-    T = aj.shape[0]
-    # always >= 1 pad tile: the owner map's empty-row slot (T*RW)
-    # must land on identity output rows, whatever the semiring
-    T_pad = -(-(T + 1) // sbt) * sbt
-    p = T_pad - T
-    if p == 0:
-        return aj, ax, rel, pend, r_start, lrow, cnt, T_pad
-    aj = np.concatenate([aj, np.zeros((p,) + aj.shape[1:], aj.dtype)])
-    ax = np.concatenate([ax, np.zeros((p,) + ax.shape[1:], ax.dtype)])
-    rel = np.concatenate([rel, np.zeros((p,) + rel.shape[1:], rel.dtype)])
-    pend = np.concatenate(
-        [pend, np.full((p,) + pend.shape[1:], -1, pend.dtype)])
-    r_start = np.concatenate([r_start, np.full(p, -2, r_start.dtype)])
-    lrow = np.concatenate([lrow, np.full(p, -2, lrow.dtype)])
-    cnt = np.concatenate([cnt, np.zeros(p, cnt.dtype)])
-    return aj, ax, rel, pend, r_start, lrow, cnt, T_pad
+def _to_key(v):
+    return _order_key(lax.bitcast_convert_type(v, jnp.int32))
 
 
-def _pend_routes(pend: np.ndarray, cnt: np.ndarray, S: int, P: int,
-                 sbt: int):
-    """Per-group route delivering each tile's row-end scan values into
-    its y window: src[g, j*P*128 + pp] = j*S*128 + pend[g*sbt+j, pp].
-
-    When spare rows exist (sbt*P + sbt <= 128) the route also drops
-    each tile's LAST-element scan value (= its last row's running
-    total, the carry source) at row sbt*P + j lane 0 — an in-kernel
-    masked full-tile reduction per tile measured ~µs-class on Mosaic,
-    vs a free extra route edge here."""
-    from spmv_tpu.ops.routing import route_tiles
-
-    T_pad = pend.shape[0]
-    Gn = T_pad // sbt
-    pf = pend.reshape(Gn, sbt, P * LANES)
-    src = np.full((Gn, LANES * LANES), -1, np.int32)
-    for j in range(sbt):
-        dst = np.arange(P * LANES) + j * P * LANES
-        pv = pf[:, j, :]
-        src[:, dst] = np.where(pv >= 0, pv + j * S * LANES, -1)
-    use_spare = sbt * P + sbt <= LANES
-    if use_spare:
-        cg = cnt.reshape(Gn, sbt).astype(np.int64)
-        for j in range(sbt):
-            src[:, (sbt * P + j) * LANES] = np.where(
-                cg[:, j] > 0, j * S * LANES + cg[:, j] - 1, -1
-            ).astype(np.int32)
-    s1, s2, s3 = route_tiles(src.reshape(Gn, LANES, LANES),
-                             dedupe=False)
-    s3 = s3.copy()
-    s3.reshape(Gn, -1)[...] |= ((src >= 0).astype(np.uint8) << 7)
-    return s1.reshape(-1, LANES), s2.reshape(-1, LANES), \
-        s3.reshape(-1, LANES)
+def _from_key(k):
+    return lax.bitcast_convert_type(_order_key(k), jnp.float32)
 
 
-def _merge_pgather(aj_flat: np.ndarray, valid_flat: np.ndarray,
-                   n_cols: int, val_bytes: int):
-    """Paged-gather plan over the merge stream (dead slots -1)."""
-    from spmv_tpu.kernels.pgather import build_paged_gather_plan
-
-    idx = np.where(valid_flat, aj_flat.astype(np.int64), -1)
-    return build_paged_gather_plan(idx, n_cols, val_bytes)
+def _halves(v, n: int):
+    """Even and odd elements of a (2n,) vector, each (n,)."""
+    lo, hi = lax.split(v.reshape(n, 2), (1, 1), axis=1)
+    return lo.reshape(n), hi.reshape(n)
 
 
-def build_merge_plan(A: CSR, policy: MergePolicy) -> MergePlan:
-    """Greedy merge-path split: each tile takes nnz until it hits the
-    EN nnz budget or the RW row-span budget (the host-side replacement
-    for DeviceSpmvSearchKernel, ref: dispatch_spmv_orig.cuh:104-148).
-    """
-    from spmv_tpu.kernels.pgather import build_paged_gather_plan
-    EN, RW = policy.nnz_per_tile, policy.rows_per_tile
-    Ap = np.asarray(A.Ap, dtype=np.int64)
-    Aj = np.asarray(A.Aj)
-    Ax = np.asarray(A.Ax)
-    nnz = int(Ap[-1])
-    n_rows = A.n_rows
-    row_ids = np.repeat(np.arange(n_rows, dtype=np.int64), Ap[1:] - Ap[:-1])
+def _merge_path_kernel(rows_ref, aj_ref, ax_ref, x_ref, y_in_ref, y_ref, *,
+                       sr: Semiring, tile: int, nnz: int, n_rows: int):
+    del y_in_ref  # the same buffer as y_ref
+    ident = jnp.float32(sr.identity_for(np.float32))
 
-    # Native C++ tile walk + fill when available (spmv_tpu/native/
-    # host.cpp spmv_merge_fill); identical semantics to the NumPy path
-    # below (tested against it in tests/test_native.py).
-    if nnz > 0:
-        try:
-            from spmv_tpu import native
+    def enc(v):
+        # a row's reduction starts from the identity, as in the oracle
+        # (ref: cpu_navie.hpp:20-35); y holds keys for min/max rings
+        v = sr.reduce(ident, v)
+        return v if sr == PLUS_TIMES else _to_key(v)
 
-            if native.available():
-                mt = native.merge_tiles(n_rows, Ap, row_ids, EN, RW)
-                T = mt["n_tiles"]
-                if T * RW + 1 > np.iinfo(np.int32).max:
-                    raise OverflowError("merge plan output exceeds int32 indexing")
-                cnt = mt["cnt"].astype(np.int64)
-                e_idx = np.arange(EN, dtype=np.int64)
-                valid = e_idx[None, :] < cnt[:, None]
-                aj_tiles = np.where(valid, Aj[mt["flat_k"]], 0).astype(np.int32)
-                ax_tiles = np.where(valid, Ax[mt["flat_k"]], 0).astype(Ax.dtype)
-                S, P = EN // LANES, RW // LANES
-                sbt = LANES // S
-                (aj_tiles, ax_tiles, rel, pend, r_start, lrow, cnt_a,
-                 T_pad) = _pad_merge_tiles(
-                    aj_tiles, ax_tiles, mt["rel"].reshape(T, S, LANES),
-                    mt["pend"].reshape(T, P, LANES), mt["r_start"],
-                    mt["lrow"], mt["cnt"], sbt)
-                valid_p = (np.arange(EN)[None, :]
-                           < cnt_a.astype(np.int64)[:, None])
-                pg = _merge_pgather(aj_tiles.reshape(-1),
-                                    valid_p.reshape(-1), A.n_cols,
-                                    Ax.dtype.itemsize)
-                pr1, pr2, pr3 = _pend_routes(pend, cnt_a, S, P, sbt)
-                return MergePlan(
-                    policy=policy,
-                    n_tiles=T_pad,
-                    aj_tiles=jnp.asarray(aj_tiles),
-                    ax_tiles=jnp.asarray(ax_tiles),
-                    rel_tiles=jnp.asarray(rel),
-                    pend_tiles=jnp.asarray(pend),
-                    r_start=jnp.asarray(r_start),
-                    lrow=jnp.asarray(lrow),
-                    cnt=jnp.asarray(cnt_a),
-                    owner_idx=jnp.asarray(mt["owner_idx"]),
-                    pgather=pg,
-                    pr1=jnp.asarray(pr1), pr2=jnp.asarray(pr2),
-                    pr3=jnp.asarray(pr3),
-                    pgather_y=build_paged_gather_plan(
-                        np.where(mt["owner_idx"].astype(np.int64)
-                                 != T * RW,
-                                 mt["owner_idx"].astype(np.int64), -1),
-                        T_pad * RW),
-                    owner_valid=jnp.asarray(
-                        mt["owner_idx"].astype(np.int64) != T * RW),
-                )
-        except (NotImplementedError, ValueError):
-            pass
+    start = pl.program_id(0) * tile
+    live = start + lax.iota(jnp.int32, tile) < nnz
+    win = pl.ds(start, tile)
+    # lanes past nnz read as the spare row n_rows, which y carries
+    key = plgpu.load(rows_ref.at[win], mask=live, other=n_rows)
+    col = plgpu.load(aj_ref.at[win], mask=live, other=0)
+    a = plgpu.load(ax_ref.at[win], mask=live, other=0).astype(jnp.float32)
+    xj = plgpu.load(x_ref.at[col], mask=live, other=0).astype(jnp.float32)
+    val = jnp.where(live, sr.combine(a, xj), ident)
 
-    # --- tile boundaries ---
-    k_starts = []
-    k = 0
-    while k < nnz:
-        r0 = int(row_ids[k])
-        k_row_limit = Ap[min(r0 + RW, n_rows)]
-        k_next = min(k + EN, int(k_row_limit), nnz)
-        assert k_next > k
-        k_starts.append(k)
-        k = k_next
-    T = len(k_starts)
-    k_starts = np.asarray(k_starts + [nnz], dtype=np.int64)
+    # Each block of the tree carries its first row (fk, fv) and its last
+    # row (lk, lv); rows between them are complete and already stored.
+    fk, fv, lk, lv = key, val, key, val
+    n = tile
+    while n > 1:
+        n //= 2
+        l_fk, r_fk = _halves(fk, n)
+        l_lk, r_lk = _halves(lk, n)
+        l_fv, r_fv = _halves(fv, n)
+        l_lv, r_lv = _halves(lv, n)
+        joined = l_lk == r_fk  # a row runs across the seam
+        both = sr.reduce(l_lv, r_fv)
+        l_one = l_fk == l_lk
+        r_one = r_fk == r_lk
+        # the left block's last row completes unless it is also the
+        # merged block's first row
+        plgpu.store(y_ref.at[l_lk], enc(jnp.where(joined, both, l_lv)),
+                    mask=~l_one & (~joined | ~r_one))
+        # the right block's first row completes when it starts here
+        plgpu.store(y_ref.at[r_fk], enc(r_fv), mask=~joined & ~r_one)
+        fk, lk = l_fk, r_lk
+        fv = jnp.where(joined & l_one, both, l_fv)
+        lv = jnp.where(joined & r_one, both, r_lv)
 
-    if T == 0:
-        # Empty matrix: no tiles; owner map sends every row to the pad slot.
-        zero_i32 = np.zeros((0,), np.int32)
-        return MergePlan(
-            policy=policy,
-            n_tiles=0,
-            aj_tiles=jnp.zeros((0, EN), jnp.int32),
-            ax_tiles=jnp.zeros((0, EN), jnp.asarray(Ax).dtype if Ax.size else jnp.float32),
-            rel_tiles=jnp.zeros((0, EN // LANES, LANES), jnp.int32),
-            pend_tiles=jnp.zeros((0, RW // LANES, LANES), jnp.int32),
-            r_start=jnp.asarray(zero_i32),
-            lrow=jnp.asarray(zero_i32),
-            cnt=jnp.asarray(zero_i32),
-            owner_idx=jnp.zeros((n_rows,), jnp.int32),
-        )
-
-    cnt = (k_starts[1:] - k_starts[:-1]).astype(np.int64)
-    r_start = row_ids[k_starts[:-1]].astype(np.int64)
-    lrow = row_ids[k_starts[1:] - 1].astype(np.int64)
-
-    # --- padded per-tile nnz arrays ---
-    # gather indices: tile t element e -> k_starts[t]+e (clamped)
-    e_idx = np.arange(EN, dtype=np.int64)
-    flat_k = np.minimum(k_starts[:-1, None] + e_idx[None, :], nnz - 1)
-    valid = e_idx[None, :] < cnt[:, None]
-    aj_tiles = np.where(valid, Aj[flat_k], 0).astype(np.int32)
-    ax_tiles = np.where(valid, Ax[flat_k], 0).astype(Ax.dtype)
-    rel = np.where(valid, row_ids[flat_k] - r_start[:, None], 0)
-    # Pad elements continue the last valid segment so they never open a
-    # new one (their product is masked to the identity at combine time).
-    last_rel = np.take_along_axis(rel, np.maximum(cnt - 1, 0)[:, None], axis=1)
-    rel = np.where(valid, rel, last_rel).astype(np.int32)
-
-    # --- per-tile row-end positions (gather targets) ---
-    # For local row r of tile t (global g = r_start[t]+r): the last
-    # in-tile element position of row g, or -1 if the row has no
-    # elements in this tile.
-    r_idx = np.arange(RW, dtype=np.int64)
-    g = r_start[:, None] + r_idx[None, :]  # (T, RW)
-    g_clamped = np.minimum(g, n_rows - 1)
-    seg_begin = np.maximum(Ap[g_clamped], k_starts[:-1, None])
-    seg_end = np.minimum(Ap[g_clamped + 1], k_starts[1:, None])
-    pend = seg_end - k_starts[:-1, None] - 1
-    has_elems = (seg_end > seg_begin) & (g < n_rows)
-    pend = np.where(has_elems, pend, -1).astype(np.int32)
-
-    # --- ownership map: for each row, the flat output slot of the last
-    # tile touching it; empty rows -> the identity pad slot (T*RW). ---
-    owner = np.searchsorted(r_start, np.arange(n_rows), side="right") - 1
-    owner = np.clip(owner, 0, T - 1)
-    local = np.arange(n_rows) - r_start[owner]
-    owner_valid = (local >= 0) & (local < RW) & (np.arange(n_rows) <= lrow[owner])
-    owner_idx = np.where(owner_valid, owner * RW + local, T * RW).astype(np.int64)
-    if T * RW + 1 > np.iinfo(np.int32).max:
-        raise OverflowError("merge plan output exceeds int32 indexing")
-    owner_idx = owner_idx.astype(np.int32)
-
-    S = EN // LANES
-    P = RW // LANES
-    sbt = LANES // S
-    (aj_tiles, ax_tiles, rel_p, pend_p, r_start_p, lrow_p, cnt_p,
-     T_pad) = _pad_merge_tiles(
-        aj_tiles, ax_tiles, rel.reshape(T, S, LANES),
-        pend.reshape(T, P, LANES), r_start.astype(np.int32),
-        lrow.astype(np.int32), cnt.astype(np.int32), sbt)
-    valid_p = (np.arange(EN)[None, :]
-               < cnt_p.astype(np.int64)[:, None])
-    pr1, pr2, pr3 = _pend_routes(pend_p, cnt_p, S, P, sbt)
-    return MergePlan(
-        policy=policy,
-        n_tiles=T_pad,
-        pgather=_merge_pgather(aj_tiles.reshape(-1),
-                               valid_p.reshape(-1), A.n_cols,
-                               Ax.dtype.itemsize if Ax.size else 4),
-        aj_tiles=jnp.asarray(aj_tiles),
-        ax_tiles=jnp.asarray(ax_tiles),
-        rel_tiles=jnp.asarray(rel_p),
-        pend_tiles=jnp.asarray(pend_p),
-        r_start=jnp.asarray(r_start_p),
-        lrow=jnp.asarray(lrow_p),
-        cnt=jnp.asarray(cnt_p),
-        owner_idx=jnp.asarray(owner_idx),
-        pr1=jnp.asarray(pr1), pr2=jnp.asarray(pr2),
-        pr3=jnp.asarray(pr3),
-        pgather_y=build_paged_gather_plan(
-            np.where(owner_valid, owner_idx.astype(np.int64), -1),
-            T_pad * RW),
-        owner_valid=jnp.asarray(owner_valid),
-    )
+    # The tile's first and last rows may continue next door. Atomics
+    # take a vector index: a one-row tile sends its second partial to
+    # the spare row.
+    atomic = _ATOMICS[sr]
+    one_row = lk == fk
+    atomic(y_ref, (fk,), enc(fv))
+    atomic(y_ref, (jnp.where(one_row, n_rows, lk),),
+           enc(jnp.where(one_row, ident, lv)))
 
 
-def _merge_group_kernel(sr: Semiring, identity: float, S: int, P: int,
-                        sbt: int, RW: int):
-    """Batched per-group kernel: sbt = 128/S tiles per grid step.
-
-    One segmented scan over the stacked (128, 128) product block
-    (segment ids offset per tile so runs never link across tiles), one
-    planned route delivering every tile's row-end values into its y
-    window (replaces the round-4 O(S) gather_flat select chain), then
-    the sequential SMEM carry chain per tile — same semantics as the
-    per-tile kernel, ~sbt x fewer grid steps and op dispatches."""
-
-    def kernel(r_start_ref, lrow_ref, cnt_ref, prod_ref, rel_ref,
-               p1_ref, p2_ref, p3_ref, out_ref, carry_row_ref,
-               carry_val_ref):
-        g = pl.program_id(0)
-
-        @pl.when(g == 0)
-        def _init():
-            carry_row_ref[0] = -1
-            carry_val_ref[0] = identity
-
-        prod = prod_ref[...]  # (sbt*S = 128, 128)
-        rel = rel_ref[...].astype(jnp.int32)
-        # per-tile rel ids offset so the scan cannot link tiles
-        seg = rel + (sublane_iota(rel.shape) // S) * RW
-        scan = segmented_scan_tile(prod, seg, sr.reduce, identity)
-        s3v = p3_ref[...].astype(jnp.int32)
-        routed = route3_batched(scan, p1_ref[...], p2_ref[...],
-                                s3v & 127)
-        yw = jnp.where(s3v >> 7 > 0, routed,
-                       jnp.full_like(routed, identity))
-
-        use_spare = sbt * P + sbt <= LANES
-        fi = flat_iota((LANES, LANES))
-        for j in range(sbt):
-            t = g * sbt + j
-            r0 = r_start_ref[t]
-            lr = lrow_ref[t]
-            cntv = cnt_ref[t]
-            fold = carry_row_ref[0] == r0
-            carry_in = carry_val_ref[0]
-            # fold the carry into tile j's first window element
-            first_elem = fi == j * P * LANES
-            yw = jnp.where(
-                jnp.logical_and(fold, first_elem),
-                sr.reduce(jnp.full_like(yw, carry_in), yw),
-                yw,
-            )
-            # this tile's last-row value (scan at its last element):
-            # delivered by the route's spare row when one exists (a
-            # masked full-tile reduction here measured µs-class)
-            if use_spare:
-                raw = routed[sbt * P + j, 0]
-            else:
-                last_mask = fi == (j * S * LANES + cntv - 1)
-                raw = sr.reduce_array(
-                    jnp.where(last_mask, scan, identity))
-            tile_is_one_row = jnp.logical_and(fold, lr == r0)
-            new_val = jnp.where(tile_is_one_row,
-                                sr.reduce(carry_in, raw), raw)
-            # empty (pad) tiles pass the carry through untouched
-            carry_val_ref[0] = jnp.where(cntv > 0, new_val,
-                                         carry_val_ref[0])
-            carry_row_ref[0] = jnp.where(cntv > 0, lr,
-                                         carry_row_ref[0])
-        out_ref[...] = yw[: sbt * P, :]
-
-    return kernel
-
-
-# `sr` is static: Semiring is a frozen dataclass, so user-defined
-# semiring objects key the jit cache and their callables trace straight
-# into the kernel — the functor_t analog
-# (ref: merge_genl/agent_spmv_orig.cuh:98-124).
-@functools.partial(
-    jax.jit,
-    static_argnames=("sr", "n_rows", "T", "S", "P", "interpret", "val_dtype",
-                     "pregathered", "pgy_meta"),
-)
-def _merge_spmv_device(
-    aj_tiles, ax_tiles, rel_tiles, pend_tiles, r_start, lrow, cnt, owner_idx, x,
-    pr1, pr2, pr3, pgy_arrays=None, owner_valid=None,
-    *, sr: Semiring, n_rows: int, T: int, S: int, P: int, interpret: bool,
-    val_dtype, pregathered: bool = False, pgy_meta=None,
-):
-    del pend_tiles  # superseded by the planned pr1/pr2/pr3 routes
-    EN = S * LANES
-    RW = P * LANES
-    sbt = LANES // S
-    identity = float(sr.identity_for(np.dtype(val_dtype)))
-
-    # Phase A: gather x and form products, masked to the identity
-    # beyond each tile's valid count. With a paged-gather plan the
-    # read runs in the Pallas planned kernel (kernels/pgather.py,
-    # ~50-80x the XLA element gather); without one (huge x tables,
-    # adversarial bucketing) the XLA gather remains.
-    if pregathered:
-        xg = x.reshape(T, EN)
+@functools.partial(jax.jit, static_argnames=(
+    "sr", "n_rows", "tile", "interpret"))
+def merge_path_rows(rows, aj, ax, x, *, sr: Semiring, n_rows: int,
+                    interpret: bool, tile: int = TILE):
+    """The kernel on device arrays: per-nnz row ids (sorted; ids equal
+    to n_rows are dropped), column indices and values. Returns float32."""
+    nnz = aj.shape[0]
+    ident = np.float32(sr.identity_for(np.float32))
+    if sr == PLUS_TIMES:
+        y0 = jnp.full((n_rows + 1,), ident, jnp.float32)
     else:
-        xg = jnp.take(x, aj_tiles.reshape(-1), fill_value=0).reshape(T, EN)
-    prod = sr.combine(ax_tiles.astype(val_dtype), xg.astype(val_dtype))
-    e_iota = jax.lax.broadcasted_iota(jnp.int32, (T, EN), 1)
-    prod = jnp.where(e_iota < cnt[:, None], prod, identity)
-
-    # Phase B (Pallas): batched per-group segmented reduction with the
-    # sequential carry chain (sbt tiles per step).
-    Gn = T // sbt
-    kernel = _merge_group_kernel(sr, identity, S, P, sbt, RW)
-    blk128 = pl.BlockSpec((LANES, LANES), lambda g, *_: (g, 0))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(Gn,),
-        in_specs=[blk128] * 5,
-        out_specs=pl.BlockSpec((sbt * P, LANES), lambda g, *_: (g, 0)),
-        scratch_shapes=[
-            pltpu.SMEM((1,), jnp.int32),
-            pltpu.SMEM((1,), jnp.dtype(val_dtype)),
-        ],
-    )
-    y_tiles = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((T * P, LANES),
-                                       jnp.dtype(val_dtype)),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
+        y0 = jnp.full((n_rows + 1,), _to_key(jnp.float32(ident)), jnp.int32)
+    y = pl.pallas_call(
+        functools.partial(_merge_path_kernel, sr=sr, tile=tile, nnz=nnz,
+                          n_rows=n_rows),
+        out_shape=jax.ShapeDtypeStruct(y0.shape, y0.dtype),
+        grid=(pl.cdiv(nnz, tile),),
+        input_output_aliases={4: 0},
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS),
         interpret=interpret,
-    )(r_start, lrow, cnt, prod.reshape(-1, LANES),
-      rel_tiles.reshape(-1, LANES), pr1, pr2, pr3)
-
-    # Phase C: assemble y by ownership gather (no scatter). With a
-    # planned paged gather the map runs in the Pallas kernel — owner
-    # streams are near-contiguous, so the window sweep skips nearly
-    # everything; the XLA element gather (~8 ms per M rows) remains
-    # the fallback. Empty rows point at a pad tile (identity output).
-    # The identity participates in every row reduction, matching the
-    # oracle's acc = initialize() (ref: cpu_navie.hpp:20-35).
-    if pgy_meta is not None:
-        from spmv_tpu.kernels.pgather import PAGES_PER_STEP, \
-            _pgather_pass
-
-        qlo, qhi, s1, s2, s3, pmask = pgy_arrays
-        C_, R_, n_w_ = pgy_meta
-        n_w_pad = -(-n_w_ // PAGES_PER_STEP) * PAGES_PER_STEP
-        yp = jnp.pad(y_tiles.reshape(T * RW),
-                     (0, n_w_pad * LANES * LANES - T * RW))
-        y2d = jnp.swapaxes(
-            yp.reshape(-1, LANES, LANES), 1, 2).reshape(-1, LANES)
-        g = _pgather_pass(y2d, qlo, qhi, s1, s2, s3, pmask,
-                          C=C_, R=R_, n_w=n_w_, interpret=interpret)
-        # empty rows ride the planned stream as dead slots (0); fold
-        # the identity back in through the validity mask
-        y = jnp.where(owner_valid, g.reshape(-1)[:n_rows], identity)
-    else:
-        y_flat = jnp.concatenate(
-            [y_tiles.reshape(T * RW),
-             jnp.full((1,), identity, dtype=val_dtype)]
-        )
-        y = jnp.take(y_flat, owner_idx)
-    return sr.reduce(y, jnp.full_like(y, identity))
+        name=f"merge_path_spmv_{sr.name}",
+    )(rows, aj, ax, x, y0)[:n_rows]
+    return y if sr == PLUS_TIMES else _from_key(y)
 
 
-def _merge_impl(A: CSR, x, semiring: Semiring, policy: MergePolicy):
+def merge_path_spmv(A: CSR, x, semiring: Semiring = PLUS_TIMES, *,
+                    tile: int = TILE):
+    """y = A ⊗ x through the merge-path kernel (see `kernel_serves`)."""
     x = jnp.asarray(x)
     val_dtype = resolve_val_dtype(A, x)
-    ident = float(semiring.identity_for(np.dtype(val_dtype)))
-    if A.nnz == 0 or A.n_cols == 0:
+    if not kernel_serves(A, val_dtype, semiring):
+        raise ValueError(
+            f"the merge-path kernel does not serve {semiring.name} over "
+            f"{np.dtype(val_dtype).name}; use the plain path")
+    if A.nnz == 0:
+        ident = semiring.identity_for(val_dtype)
         return jnp.full((A.n_rows,), ident, dtype=val_dtype)
-    plan: MergePlan = plan_cache(
-        A, ("merge", policy), lambda: build_merge_plan(A, policy)
-    )
-    S = policy.nnz_per_tile // LANES
-    P = policy.rows_per_tile // LANES
-    xin = x
-    pregathered = plan.pgather is not None
-    if pregathered:
-        from spmv_tpu.kernels.pgather import paged_gather
-
-        xin = paged_gather(x.astype(val_dtype), plan.pgather)
-    pgy = plan.pgather_y
-    pgy_arrays = None
-    pgy_meta = None
-    if pgy is not None:
-        pgy_arrays = (pgy.qlo, pgy.qhi, pgy.s1, pgy.s2, pgy.s3,
-                      pgy.pmask)
-        pgy_meta = (pgy.n_chunks, pgy.rounds, pgy.n_w)
-    return _merge_spmv_device(
-        plan.aj_tiles, plan.ax_tiles, plan.rel_tiles, plan.pend_tiles,
-        plan.r_start, plan.lrow, plan.cnt, plan.owner_idx, xin,
-        plan.pr1, plan.pr2, plan.pr3, pgy_arrays, plan.owner_valid,
-        sr=semiring, n_rows=A.n_rows, T=plan.n_tiles, S=S, P=P,
-        interpret=config.use_interpret(), val_dtype=np.dtype(val_dtype),
-        pregathered=pregathered, pgy_meta=pgy_meta,
-    )
+    d = device_csr(A)
+    y = merge_path_rows(d["rows"], d["Aj"], d["Ax"], x, sr=semiring,
+                        n_rows=A.n_rows, tile=tile,
+                        interpret=config.use_interpret())
+    return y.astype(val_dtype)
 
 
-# ---------------------------------------------------------------------------
-# Registrations.
-#
-# The FAST merge kinds run on the stream pipeline (gather pass +
-# planned shuffle + MXU scan): the merge-path structure survives as the
-# plan-time equal-nnz tile walk (stream._final_tile_walk = the
-# DeviceSpmvSearchKernel analog, ref: dispatch_spmv_orig.cuh:104-148)
-# with per-kind nnz-per-tile policies, and the cross-tile fixup as the
-# accumulating y-bin revisit (ref: agent_segment_fixup.cuh analog).
-# Replacing the per-element XLA x-gather with the plan-routed gather
-# pass is what makes them TPU-fast (VERDICT r1 item 1): the plan-time
-# column sort plays the role the GPU texture/smem hierarchy plays in
-# the reference's staged ConsumeTile
-# (ref: merge_based/agent_spmv_orig.cuh:454-536).
-#
-# `merge_tiled` keeps the direct tiled implementation above (XLA
-# element gather + Pallas segmented scan + SMEM carry chain): it is the
-# reach fallback — the stream planner caps out near ~60M nnz, the
-# tiled path does not.
-# ---------------------------------------------------------------------------
-
-def _stream_policy_for(nnz_per_tile: int):
-    from spmv_tpu.kernels.stream import StreamPolicy
-    from spmv_tpu.ops.tuning import dispatch_fields
-
-    return StreamPolicy(kappa=nnz_per_tile, **dispatch_fields())
+def _select(A: CSR, val_dtype, semiring: Semiring) -> str:
+    return "hopper" if kernel_serves(A, val_dtype, semiring) else "plain"
 
 
-def _merge_fast(A: CSR, x, semiring: Semiring, kappa: int,
-                tiled_policy: MergePolicy):
-    from spmv_tpu.ops.registry import PlanCapacityError
-    from spmv_tpu.kernels.stream import _stream_spmv
-
-    try:
-        return _stream_spmv(A, x, semiring, _stream_policy_for(kappa))
-    except PlanCapacityError as e:
-        from spmv_tpu.ops.registry import warn_fallback
-
-        warn_fallback("merge", "tiled", e)
-        return _merge_impl(A, x, semiring, tiled_policy)
+def _merge_kind(A: CSR, x, *, semiring: Semiring = PLUS_TIMES):
+    """Merge-path SpMV (the Hopper kernel), or the plain path for the
+    dtypes and semirings the kernel does not serve."""
+    if _select(A, resolve_val_dtype(A, x), semiring) == "hopper":
+        return merge_path_spmv(A, x, semiring)
+    return plain_spmv(A, x, semiring)
 
 
-@register("merge", supports_semiring=True,
-          reference_analog="merge_based/* (dispatch_spmv_orig.cuh:533-769)")
-def _merge(A: CSR, x, *, semiring: Semiring = PLUS_TIMES):
-    """Merge-path SpMV, tuned policy, on the stream pipeline
-    (ref: include/spmv/merge_based/*)."""
-    return _merge_fast(A, x, semiring, 14336, TUNED_POLICY)
-
-
-@register("merge_stock", reference_analog="cub_merge.cuh:16-55",
-          aliases=("cub_merge",), supports_semiring=True)
-def _merge_stock(A: CSR, x, *, semiring: Semiring = PLUS_TIMES):
-    """Merge-path SpMV with library-default (untuned) tile policy — the
-    cub_merge analog: same pipeline as `merge`, smaller equal-nnz tiles
-    (more fixup traffic), measurably slower on skewed matrices."""
-    return _merge_fast(A, x, semiring, 8192, STOCK_POLICY)
-
-
-@register("merge_genl", supports_semiring=True,
-          reference_analog="merge_genl/* (merge_genl.cuh:41-80)")
-def _merge_genl(A: CSR, x, *, semiring: Semiring = PLUS_TIMES):
-    """Semiring-generalized merge-path SpMV: the generic-path entry for
-    ARBITRARY user Semiring objects (initialize/combine/reduce traced
-    into products, scans, carries and the fixup fold — the functor_t
-    reach of ref: include/spmv/merge_genl/agent_spmv_orig.cuh:98-124).
-    Non-plus_times semirings take the roll-scan kernel (no inverse
-    assumed); plus_times takes the MXU prefix-difference kernel."""
-    return _merge_fast(A, x, semiring, 14336, TUNED_POLICY)
-
-
-@register("merge_tiled", supports_semiring=True,
-          reference_analog="merge_based/agent_spmv_orig.cuh:120-760 "
-                           "(direct tiled walk; reach fallback)")
-def _merge_tiled(A: CSR, x, *, semiring: Semiring = PLUS_TIMES):
-    """Merge-path SpMV, direct tiled execution: XLA element gather +
-    per-tile Pallas segmented scan + SMEM carry chain. Slower than
-    `merge` (the gather is the bottleneck) but has no planner size cap;
-    `merge` falls back here beyond the stream planner's reach."""
-    return _merge_impl(A, x, semiring, TUNED_POLICY)
+# The reference's kind names (ref: spmv.h:18-27) and the strategy
+# variants earlier versions added. On Hopper they all run the one
+# merge-path kernel: kind -> (reference analog, aliases).
+_KINDS = {
+    "merge": ("merge_based/* (dispatch_spmv_orig.cuh:533-769)", ()),
+    "merge_stock": ("cub_merge.cuh:16-55", ("cub_merge",)),
+    "merge_genl": ("merge_genl/* (merge_genl.cuh:41-80)", ()),
+    "merge_tiled": ("merge_based/agent_spmv_orig.cuh:120-760", ()),
+    "stream": ("(beyond the reference: equal-nnz tile walk)", ()),
+    "csr_scalar": ("(SURVEY §7.3a; row-parallel baseline)", ()),
+    "csr_vector": ("cusp/cusp.cuh:19-237", ("cusp",)),
+    "csr_vector_shfl": ("cusp/cusp_warp_reduce.cuh:11-148", ("cusp1",)),
+    "csr_vector_shfl2": ("cusp/cusp_warp_read_reduce.cuh:11-154",
+                         ("cusp2",)),
+    "csr_vector_ell": ("cusp/cusp.cuh:19-237", ()),
+    "csr_vector_shfl_ell": ("cusp/cusp_warp_reduce.cuh:11-148", ()),
+    "csr_vector_shfl2_ell": ("cusp/cusp_warp_read_reduce.cuh:11-154", ()),
+    "light_vec": ("LightSpMV.cuh:110-182,376-395", ()),
+    "light_warp": ("LightSpMV.cuh:184-263,397-416", ()),
+    "light_vec_ell": ("LightSpMV.cuh:110-182", ()),
+    "light_warp_ell": ("LightSpMV.cuh:184-263", ()),
+}
+for _name, (_analog, _aliases) in _KINDS.items():
+    register(_name, supports_semiring=True, reference_analog=_analog,
+             aliases=_aliases, implementation=_select)(_merge_kind)

@@ -1,9 +1,8 @@
-"""SpGEMM: C = A @ B for CSR x CSR, semiring-generalized — TPU-native.
+"""SpGEMM: C = A @ B for CSR x CSR, semiring-generalized.
 
 North-star extension beyond the reference (SURVEY §7.5; the reference
-is SpMV-only). The design follows the library's one split: everything
-STRUCTURAL happens at plan time on the host, everything VALUE-dependent
-runs on device through the existing streaming machinery.
+is SpMV-only). Everything structural happens on the host, everything
+value-dependent on the device:
 
 - **Symbolic phase** (host, cached per (A, B) pair): expand the
   intermediate triple list (i, k, j) for every (i,k) in A crossed with
@@ -11,7 +10,7 @@ runs on device through the existing streaming machinery.
   then sort by (i, j) and collapse duplicates into C's CSR pattern.
   This is the host analog of a GPU hash/sort SpGEMM symbolic pass.
 - **Numeric phase** (device): the intermediate products grouped by
-  output nonzero are EXACTLY an SpMV on a *virtual* CSR:
+  output nonzero are exactly an SpMV on a *virtual* CSR:
 
       V.n_rows = nnz(C)        (one virtual row per output nonzero)
       V.Ap     = triple-group offsets
@@ -20,13 +19,8 @@ runs on device through the existing streaming machinery.
       x        = B.Ax
       C.data   = spmv(V, B.Ax)
 
-  so the full stream pipeline (plan-routed gather + shuffle + MXU
-  scan), its semiring generality (combine(a_ik, b_kj) / reduce), and
-  its fallbacks apply verbatim — no new kernels. method='auto' runs
-  the XLA numeric unless a stream plan for the virtual CSR already
-  exists (one-shot products never amortize the O(nnz) plan build;
-  pattern-fixed iteration — APSP relaxations — opts in once via
-  method='stream' and rides the cached plan thereafter).
+  which runs the plain path, with its semiring generality
+  (combine(a_ik, b_kj) / reduce).
 
 C keeps structural zeros (entries whose values reduce to the semiring
 identity), matching scipy.sparse semantics.
@@ -38,7 +32,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from spmv_tpu.formats import CSR
-from spmv_tpu.ops.registry import plan_cache, PlanCapacityError
+from spmv_tpu.kernels.baseline import plain_spmv
+from spmv_tpu.ops.registry import plan_cache
 from spmv_tpu.ops.semiring import Semiring, PLUS_TIMES
 
 
@@ -149,13 +144,8 @@ def _plan(A: CSR, B: CSR):
     return plan_cache(A, key, build)
 
 
-def spgemm(A: CSR, B: CSR, semiring: Semiring = PLUS_TIMES,
-           method: str = "auto") -> CSR:
-    """C = A (x) B over `semiring`; returns CSR with C's pattern.
-
-    method: 'stream' (plan-routed Pallas pipeline on the virtual CSR),
-    'xla' (gather + sorted segment reduce), or 'auto'.
-    """
+def spgemm(A: CSR, B: CSR, semiring: Semiring = PLUS_TIMES) -> CSR:
+    """C = A (x) B over `semiring`; returns CSR with C's pattern."""
     if A.n_cols != B.n_rows:
         raise ValueError(
             f"inner dimensions mismatch: A is {A.shape}, B is {B.shape}")
@@ -167,61 +157,8 @@ def spgemm(A: CSR, B: CSR, semiring: Semiring = PLUS_TIMES,
     if nnzC == 0:
         return CSR(A.n_rows, B.n_cols, sym["Cp"],
                    sym["Cj"].astype(np.int32), np.zeros(0, val_dtype))
-
-    Bx = jnp.asarray(np.asarray(B.Ax))
-    if method == "xla":
-        cvals = _numeric_xla(V, Bx, semiring)
-    elif method == "stream":
-        cvals = _numeric_stream(V, Bx, semiring)
-    else:
-        # 'auto': the stream pipeline amortizes its O(nnz) plan build
-        # only when the numeric phase re-runs over a fixed pattern
-        # (semiring iteration: APSP relaxations, value refreshes).
-        # A one-shot product is XLA-numeric; opting into
-        # method='stream' once makes every later auto call on the same
-        # (A, B) ride the already-built plan.
-        if _stream_planned(V):
-            try:
-                cvals = _numeric_stream(V, Bx, semiring)
-            except PlanCapacityError:
-                cvals = _numeric_xla(V, Bx, semiring)
-        else:
-            cvals = _numeric_xla(V, Bx, semiring)
-
+    cvals = plain_spmv(V, jnp.asarray(np.asarray(B.Ax)), semiring)
     idx_dtype = (np.int32 if B.n_cols <= np.iinfo(np.int32).max
                  else np.int64)
     return CSR(A.n_rows, B.n_cols, sym["Cp"],
                sym["Cj"].astype(idx_dtype), cvals)
-
-
-def _stream_planned(V: CSR) -> bool:
-    """True when a stream plan for the virtual CSR is already at hand:
-    in the in-memory cache, or saved in the on-disk plan dir (so an
-    APSP loop restarted in a new process still rides its plan)."""
-    import os
-
-    from spmv_tpu import config
-    from spmv_tpu.kernels.stream import plan_cache_key, DEFAULT_POLICY
-    from spmv_tpu.ops.registry import plan_cached
-
-    if plan_cached(V, plan_cache_key(DEFAULT_POLICY)):
-        return True
-    d = config.plan_dir()
-    if d:
-        from spmv_tpu.utils.plancache import plan_key
-
-        return os.path.exists(
-            os.path.join(d, f"stream-{plan_key(V, DEFAULT_POLICY)}.npz"))
-    return False
-
-
-def _numeric_stream(V: CSR, Bx, semiring: Semiring):
-    from spmv_tpu.kernels.stream import _stream_spmv, DEFAULT_POLICY
-
-    return _stream_spmv(V, Bx, semiring, DEFAULT_POLICY)
-
-
-def _numeric_xla(V: CSR, Bx, semiring: Semiring):
-    from spmv_tpu.ops.registry import spmv
-
-    return spmv("xla", V, Bx, semiring=semiring)

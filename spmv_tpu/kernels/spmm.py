@@ -1,316 +1,32 @@
-"""SpMM: Y = A @ X for CSR A and dense X (n_cols, B) — TPU-native.
+"""SpMM: Y = A @ X for CSR A and dense X (n_cols, B).
 
-This is SURVEY §7 step-5 territory (beyond the reference, which is
-SpMV-only). The TPU path reuses the flagship stream-SpMV kernel
-unchanged via a Kronecker identity:
-
-    A @ X  ==  unflatten( (A ⊗ I_128) @ vec(X_block) )
-
-Expanding A by I_128 is pure plan-side index arithmetic (each nonzero
-(r, j, v) becomes 128 nonzeros (128r+c, 128j+c, v)); the expanded
-matrix column-sorts into naturally aligned x-windows (the 128 children
-of column j ARE X's row j), so the stream pipeline's gather, shuffle
-and scan apply at full element granularity — no new kernels, and the
-per-matrix expanded plan is cached and shared by every 128-column
-block of X and every call.
-
-Above the stream planner's reach (~60M expanded nonzeros, i.e. ~450K
-nnz per 128-column block), `spmm` falls back to an XLA row-gather +
-segment-reduction path.
+Beyond the reference, which is SpMV-only (SURVEY §7 step 5). The
+product is the plain formulation: gather the rows of X that A's
+nonzeros name, combine with the values, and reduce by row with the
+semiring's sorted segment reduction.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from spmv_tpu.formats import CSR
-from spmv_tpu.kernels.stream import _stream_spmv, DEFAULT_POLICY
-from spmv_tpu.ops.registry import plan_cache, PlanCapacityError, \
-    resolve_val_dtype
-from spmv_tpu.ops.semiring import Semiring, PLUS_TIMES
-
-LANES = 128
+from spmv_tpu.kernels.baseline import device_csr
+from spmv_tpu.ops.registry import resolve_val_dtype
+from spmv_tpu.ops.semiring import Semiring, PLUS_TIMES, segment_reduce_sorted
 
 
-def _kron_expand(A: CSR) -> CSR:
-    """A ⊗ I_128 as CSR (row-major by construction)."""
-    Ap = np.asarray(A.Ap, dtype=np.int64)
-    Aj = np.asarray(A.Aj, dtype=np.int64)
-    Ax = np.asarray(A.Ax)
-    nnz = int(Ap[-1])
-    lens = (Ap[1:] - Ap[:-1]).astype(np.int64)
-    # expanded row (128r+c) holds row r's nonzeros at columns 128j+c:
-    # order rows (r, c), within each the original column order.
-    # index of source nnz for expanded position: for row r, block of
-    # 128*len(r) entries laid out c-major.
-    reps = np.repeat(lens, LANES)  # per (r, c) expanded-row length
-    Ap2 = np.concatenate([[0], np.cumsum(reps)])
-    starts = np.repeat(Ap[:-1], LANES)  # source-row start per (r, c)
-    offs = np.arange(int(reps.sum()), dtype=np.int64) - np.repeat(
-        Ap2[:-1], reps)
-    src = np.repeat(starts, reps) + offs  # source nnz per entry
-    c_of = np.repeat(np.tile(np.arange(LANES, dtype=np.int64), A.n_rows),
-                     reps)
-    Aj2 = Aj[src] * LANES + c_of
-    Ax2 = Ax[src]
-    # expanded columns reach n_cols*128: keep int64 when int32 would wrap
-    idx_dtype = (np.int32 if A.n_cols * LANES <= np.iinfo(np.int32).max
-                 else np.int64)
-    return CSR(A.n_rows * LANES, A.n_cols * LANES,
-               Ap2.astype(np.int64), Aj2.astype(idx_dtype),
-               Ax2.astype(Ax.dtype))
-
-
-def spmm_stream(A: CSR, X, semiring: Semiring = PLUS_TIMES) -> jax.Array:
-    """Y = A @ X via the stream kernel on the Kronecker expansion."""
+def spmm(A: CSR, X, semiring: Semiring = PLUS_TIMES) -> jax.Array:
+    """Y = A ⊗ X (dense X of shape (n_cols, B))."""
     X = jnp.asarray(X)
-    if X.ndim != 2 or X.shape[0] != A.n_cols:
-        raise ValueError(f"X must be (n_cols, B); got {X.shape}")
-    B = X.shape[1]
-    Bp = -(-B // LANES) * LANES
-    # capacity check BEFORE building/caching the 128x expansion — a
-    # matrix moderately over the cap must fall back cleanly, not OOM
-    # allocating tens of GB of expanded plan first
-    if A.nnz * LANES > 64_000_000:
-        raise PlanCapacityError(
-            "matrix too large for the stream SpMM path")
-    Ak: CSR = plan_cache(A, "spmm_kron", lambda: _kron_expand(A))
-    Xp = jnp.pad(X, ((0, 0), (0, Bp - B)))
-    outs = []
-    for vb in range(Bp // LANES):
-        xv = Xp[:, vb * LANES:(vb + 1) * LANES].reshape(-1)
-        yv = _stream_spmv(Ak, xv, semiring, DEFAULT_POLICY)
-        outs.append(yv.reshape(A.n_rows, LANES))
-    return jnp.concatenate(outs, axis=1)[:, :B]
-
-
-# ---------------------------------------------------------------------------
-# Real O(nnz) SpMM: window-staged one-hot-MXU product pass
-# ---------------------------------------------------------------------------
-#
-# The Kronecker path above inflates the plan 128x; this kernel keeps
-# plan memory O(nnz). nnz are column-sorted and chunked into tiles of
-# 128 (one nnz per SUBLANE), every tile confined to one 128-row X
-# window (scalar-prefetch-indexed). The per-tile gather+scale is ONE
-# MXU matmul: O[r, s] = [q_s == r] * Ax_s (a value-folded one-hot
-# built from lane vectors), P_tile = O^T-contracted with Xwin, i.e.
-# P[s, :] = Ax_s * X[col_s, :]. Products are then taken back to CSR
-# rank order and segment-reduced by row (XLA; sorted ids).
-#
-# This is the TPU answer to the reference's texture-cached x reads in
-# the CUDA kernels (ref: LightSpMV.cuh:60-88): the plan-time column
-# sort supplies the locality the GPU cache hierarchy provides.
-
-SBT_SPMM = 8  # tiles (128 nnz each) per product-pass grid step
-
-
-def _plan_spmm_window(A: CSR) -> dict:
-    """Column-window tiling of nnz: one nnz per sublane slot."""
-    Aj = np.asarray(A.Aj, dtype=np.int64)
-    nnz = Aj.shape[0]
-    order = np.argsort(Aj, kind="stable")
-    cols = Aj[order]
-    win = (cols // LANES).astype(np.int64)
-    uw, wstart = np.unique(win, return_index=True)
-    counts = np.diff(np.append(wstart, nnz))
-    tiles_per = -(-counts // LANES)
-    T = int(tiles_per.sum())
-    Tp = max(SBT_SPMM, -(-T // SBT_SPMM) * SBT_SPMM)
-
-    t0 = np.concatenate([[0], np.cumsum(tiles_per)])[:-1]
-    pos_in_w = np.arange(nnz) - np.repeat(wstart, counts)
-    slot = ((np.repeat(t0, counts) + pos_in_w // LANES) * LANES
-            + pos_in_w % LANES)
-
-    q = np.zeros(Tp * LANES, dtype=np.int32)
-    ax = np.zeros(Tp * LANES, dtype=np.float64)
-    Axv = np.asarray(A.Ax, dtype=np.float64)
-    q[slot] = (cols % LANES).astype(np.int32)
-    ax[slot] = Axv[order]
-    xb = np.zeros(Tp, dtype=np.int32)
-    xb[:T] = np.repeat(uw, tiles_per).astype(np.int32)
-
-    # CSR rank r lives at product row slot_of_rank[r]; ranks are
-    # row-sorted, so P[slot_of_rank] is directly segment-reducible.
-    slot_of_rank = np.empty(nnz, dtype=np.int64)
-    slot_of_rank[order] = slot
-    return {
-        "q": q.reshape(Tp, LANES), "ax": ax.reshape(Tp, LANES),
-        "xb": xb, "perm": slot_of_rank, "rows": A.row_ids(),
-        "n_tiles": Tp,
-    }
-
-
-def _spmm_window_kernel(sbt: int, sr: Semiring, generic: bool):
-    from jax.experimental.pallas import tpu as pltpu  # noqa: F401
-    from spmv_tpu.kernels.stream import _MM_PRECISION
-
-    def kernel(xb_ref, ax_ref, q_ref, *refs):
-        del xb_ref  # consumed by the xwin index maps
-        xwins, out_ref = refs[:sbt], refs[sbt]
-        ri = jax.lax.broadcasted_iota(jnp.int32, (LANES, LANES), 0)
-        blocks = []
-        for j in range(sbt):
-            qv = q_ref[j, :]
-            axv = ax_ref[j, :]
-            xw = xwins[j][...]
-            if not generic:
-                oh = jnp.where(ri == qv[None, :], axv[None, :],
-                               jnp.zeros((LANES, LANES), xw.dtype))
-                pj = jax.lax.dot_general(
-                    oh, xw, (((0,), (0,)), ((), ())),
-                    precision=_MM_PRECISION,
-                    preferred_element_type=xw.dtype)
-            else:
-                ohp = (ri == qv[None, :]).astype(xw.dtype)
-                g = jax.lax.dot_general(
-                    ohp, xw, (((0,), (0,)), ((), ())),
-                    precision=_MM_PRECISION,
-                    preferred_element_type=xw.dtype)
-                oha = jnp.where(ri == 0, axv[None, :],
-                                jnp.zeros((LANES, LANES), xw.dtype))
-                ax_sub = jax.lax.dot_general(
-                    oha, jnp.ones((LANES, LANES), xw.dtype),
-                    (((0,), (0,)), ((), ())),
-                    precision=_MM_PRECISION,
-                    preferred_element_type=xw.dtype)
-                pj = sr.combine(ax_sub, g)
-            blocks.append(pj)
-        out_ref[...] = jnp.concatenate(blocks, axis=0)
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "sr", "sbt", "n_tiles", "n_rows", "generic", "interpret"))
-def _spmm_window_pass(Xp, ax, q, xb, perm, rows, *, sr: Semiring, sbt,
-                      n_tiles, n_rows, generic, interpret):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    n_steps = n_tiles // sbt
-
-    def xwin_map(j):
-        return lambda t, xb: (xb[t * sbt + j], 0)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(n_steps,),
-        in_specs=(
-            [pl.BlockSpec((sbt, LANES), lambda t, xb: (t, 0))] * 2
-            + [pl.BlockSpec((LANES, LANES), xwin_map(j))
-               for j in range(sbt)]
-        ),
-        out_specs=pl.BlockSpec((sbt * LANES, LANES), lambda t, xb: (t, 0)),
-    )
-    P = pl.pallas_call(
-        _spmm_window_kernel(sbt, sr, generic),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_tiles * LANES, LANES),
-                                       Xp.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",)),
-        interpret=interpret,
-    )(xb, ax, q, *([Xp] * sbt))
-    from spmv_tpu.ops.semiring import segment_reduce_sorted
-
-    Ps = jnp.take(P, perm, axis=0)
-    ident = float(sr.identity_for(Xp.dtype))
-    return segment_reduce_sorted(Ps, rows, n_rows, sr, ident)
-
-
-def spmm_window(A: CSR, X, semiring: Semiring = PLUS_TIMES) -> jax.Array:
-    """Y = A @ X via the window-staged product pass; O(nnz) plan."""
-    from spmv_tpu import config
-
-    X = jnp.asarray(X)
-    if X.ndim != 2 or X.shape[0] != A.n_cols:
-        raise ValueError(f"X must be (n_cols, B); got {X.shape}")
-    val_dtype = np.dtype(resolve_val_dtype(A, X))
-    if A.nnz == 0 or A.n_cols == 0:
-        ident = float(semiring.identity_for(val_dtype))
-        return jnp.full((A.n_rows, X.shape[1]), ident, dtype=val_dtype)
-    # product buffer (pad_tiles*128, 128) fp32 per column block: cap at
-    # ~6 GB so two copies (+ the take) fit comfortably in HBM
-    if A.nnz * LANES * 4 * 2.2 > 12e9:
-        raise PlanCapacityError(
-            "matrix too large for the window SpMM path")
-    plan = plan_cache(A, "spmm_window", lambda: _plan_spmm_window(A))
-    B = X.shape[1]
-    Bp = -(-B // LANES) * LANES
-    Xp = jnp.pad(X.astype(val_dtype), ((0, 0), (0, Bp - B)))
-    # pad X rows to the window grid (xb indexes 128-row blocks)
-    rows_pad = LANES * max(int(plan["xb"].max(initial=0)) + 1,
-                           -(-A.n_cols // LANES), 1)
-    if Xp.shape[0] < rows_pad:
-        Xp = jnp.pad(Xp, ((0, rows_pad - Xp.shape[0]), (0, 0)))
-    generic = semiring.name not in ("plus_times",)
-    perm = plan["perm"]
-    if plan["n_tiles"] * LANES <= np.iinfo(np.int32).max:
-        perm = perm.astype(np.int32)
-    dev = plan_cache(A, ("spmm_window_dev", str(val_dtype)), lambda: {
-        "ax": jnp.asarray(plan["ax"].astype(val_dtype)),
-        "q": jnp.asarray(plan["q"]),
-        "xb": jnp.asarray(plan["xb"]),
-        "perm": jnp.asarray(perm),
-        "rows": jnp.asarray(plan["rows"]),
-    })
-    outs = []
-    for vb in range(Bp // LANES):
-        Xblk = jax.lax.slice_in_dim(Xp, vb * LANES, (vb + 1) * LANES,
-                                    axis=1)
-        outs.append(_spmm_window_pass(
-            Xblk, dev["ax"], dev["q"], dev["xb"], dev["perm"],
-            dev["rows"], sr=semiring, sbt=SBT_SPMM,
-            n_tiles=plan["n_tiles"], n_rows=A.n_rows, generic=generic,
-            interpret=config.use_interpret()))
-    Y = jnp.concatenate(outs, axis=1) if len(outs) > 1 else outs[0]
-    return Y[:, :B]
-
-
-def spmm_xla(A: CSR, X, semiring: Semiring = PLUS_TIMES) -> jax.Array:
-    """XLA fallback: row gather + sorted segment reduction."""
-    X = jnp.asarray(X)
-    plan = plan_cache(A, "spmm_xla", lambda: {
-        "rows": jnp.asarray(A.row_ids()),
-        "Aj": jnp.asarray(np.asarray(A.Aj)),
-        "Ax": jnp.asarray(np.asarray(A.Ax)),
-    })
-    from spmv_tpu.ops.semiring import segment_reduce_sorted
-
-    xg = jnp.take(X, plan["Aj"], axis=0)
-    prod = semiring.combine(plan["Ax"][:, None], xg)
-    ident = float(semiring.identity_for(prod.dtype))
-    return segment_reduce_sorted(prod, plan["rows"], A.n_rows, semiring,
-                                 ident)
-
-
-def spmm(A: CSR, X, semiring: Semiring = PLUS_TIMES,
-         method: str = "auto") -> jax.Array:
-    """Y = A @ X (dense X of shape (n_cols, B)).
-
-    method: 'window' (O(nnz)-plan Pallas product pass — the default
-    device path), 'stream' (Pallas pipeline over the 128x Kronecker
-    expansion; small matrices only), 'xla', or 'auto' (window when the
-    planner can reach the matrix, else xla)."""
-    X = jnp.asarray(X)
-    # validate once here so the auto fallback below only ever fires on
-    # planner-capacity errors, never on user shape mistakes (which
-    # spmm_xla would silently clamp-gather into plausible garbage)
+    # a wrong-shaped X would otherwise clamp-gather into plausible garbage
     if X.ndim != 2 or X.shape[0] != A.n_cols:
         raise ValueError(f"X must be (n_cols, B) = ({A.n_cols}, B); "
                          f"got {X.shape}")
-    if method == "xla":
-        return spmm_xla(A, X, semiring)
-    if method == "stream":
-        return spmm_stream(A, X, semiring)
-    if method == "window":
-        return spmm_window(A, X, semiring)
-    try:
-        return spmm_window(A, X, semiring)
-    except PlanCapacityError:
-        return spmm_xla(A, X, semiring)
+    val_dtype = resolve_val_dtype(A, X)
+    d = device_csr(A)
+    xg = jnp.take(X.astype(val_dtype), d["Aj"], axis=0)
+    prod = semiring.combine(d["Ax"].astype(val_dtype)[:, None], xg)
+    ident = float(semiring.identity_for(val_dtype))
+    return segment_reduce_sorted(prod, d["rows"], A.n_rows, semiring, ident)

@@ -1,8 +1,8 @@
-"""Sparse triangular solve + ILU(0) — level-scheduled, TPU-structured.
+"""Sparse triangular solve + ILU(0) — level-scheduled.
 
-North-star components beyond the reference (SURVEY §7.5, VERDICT r1
-item 6; the CUDA reference has no solver). Triangular solves are
-inherently sequential along dependency chains; the TPU-native answer is
+North-star components beyond the reference (SURVEY §7.5; the CUDA
+reference has no solver). Triangular solves are inherently sequential
+along dependency chains; the answer here is
 **plan-time level scheduling** (the wavefront method): rows are grouped
 into levels such that every row's dependencies live in strictly earlier
 levels, then one batched device step per level runs inside

@@ -1,14 +1,12 @@
 """Native (C++) host runtime bindings.
 
 The reference's host layer is native C++ (loader load.hpp, CSR
-conversion, merge-path search thread_search.cuh/dispatch); this package
-provides the TPU build's native equivalents, exposed over a plain C
-ABI and bound with ctypes (no pybind11 dependency):
+conversion); this package provides native equivalents, exposed over
+a plain C ABI and bound with ctypes (no pybind11 dependency):
 
 - ``mm_read(path)``            — fast Matrix Market parse (+symmetric expansion)
-- ``coo_to_csr(...)``          — stable counting sort
-- ``merge_tiles(...)``         — merge plan tile walk + padded tile fill
-- ``ell_chunks(...)``          — ELL chunking for the csr-vector family
+- ``coo_to_csr_perm(...)``     — stable counting sort
+- ``spgemm_symbolic(...)``     — Gustavson symbolic phase for ``spgemm``
 
 The library is compiled on first use with g++ -O2 and cached next to
 this file; every caller has a pure-NumPy fallback, so a missing
@@ -89,45 +87,8 @@ def _load():
         I64 = ctypes.c_int64
         P64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
         P32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
-        PU8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
         lib.spmv_coo_to_csr.argtypes = [I64, I64, P32, P32, P64, P32, P64]
         lib.spmv_coo_to_csr.restype = ctypes.c_int
-        lib.spmv_merge_count_tiles.argtypes = [I64, I64, P64, P64, I64, I64]
-        lib.spmv_merge_count_tiles.restype = I64
-        lib.spmv_merge_fill.argtypes = [
-            I64, I64, P64, P64, I64, I64, I64,
-            P64, P32, P32, P32, P64, P32, P32, P32,
-        ]
-        lib.spmv_merge_fill.restype = ctypes.c_int
-        lib.spmv_ell_count_chunks.argtypes = [I64, P64, P64, I64]
-        lib.spmv_ell_count_chunks.restype = I64
-        lib.spmv_ell_fill.argtypes = [I64, P64, P64, I64, I64, I64, P64, PU8, P32]
-        lib.spmv_ell_fill.restype = ctypes.c_int
-        lib.spmv_route_tiles.argtypes = [I64, P32, PU8, PU8, PU8, ctypes.c_int32]
-        lib.spmv_plan_split.argtypes = [
-            I64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-            ctypes.c_int32, P64, P32, P64, I64, P32, P32, P64,
-            ctypes.c_int32, I64]
-        lib.spmv_plan_split.restype = ctypes.c_int
-        lib.spmv_scatter_slots.argtypes = [I64, P64, I64, P64]
-        lib.spmv_scatter_slots.restype = ctypes.c_int
-        I32 = ctypes.c_int32
-        lib.spmv_geom_mid1.argtypes = [I64, P32, P32, I32, I32, I32,
-                                       I32, P32]
-        lib.spmv_geom_mid1.restype = ctypes.c_int
-        lib.spmv_geom_sub_next.argtypes = [I64, P32, P32, I64, I32,
-                                           I64, I32, I32, I32, I32, P32]
-        lib.spmv_geom_sub_next.restype = ctypes.c_int
-        lib.spmv_geom_key_max.argtypes = [I64, P32, P32, I64, I64, I32,
-                                          I32, I64]
-        lib.spmv_geom_key_max.restype = I64
-        P16 = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
-        PI8 = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
-        lib.spmv_plan_scan3.argtypes = [
-            I64, P64, P64, P64, P64, ctypes.c_int32,
-            P32, P16, P32, P32, PI8, P32]
-        lib.spmv_plan_scan3.restype = ctypes.c_int
-        lib.spmv_route_tiles.restype = ctypes.c_int
         PPI32 = ctypes.POINTER(ctypes.POINTER(ctypes.c_int32))
         PPI64 = ctypes.POINTER(ctypes.POINTER(ctypes.c_int64))
         PI64 = ctypes.POINTER(ctypes.c_int64)
@@ -190,221 +151,6 @@ def coo_to_csr_perm(n_rows: int, rows: np.ndarray, cols: np.ndarray):
     if rc != 0:
         raise ValueError(_err(lib))
     return Ap, Aj, perm
-
-
-def merge_tiles(n_rows: int, Ap: np.ndarray, row_of_nnz: np.ndarray,
-                EN: int, RW: int):
-    """Native merge-plan build. Returns dict of plan arrays (see host.cpp)."""
-    lib = _load()
-    if lib is None:
-        raise NotImplementedError("native library unavailable")
-    Ap = np.ascontiguousarray(Ap, dtype=np.int64)
-    row_of_nnz = np.ascontiguousarray(row_of_nnz, dtype=np.int64)
-    nnz = row_of_nnz.shape[0]
-    T = lib.spmv_merge_count_tiles(n_rows, nnz, Ap, row_of_nnz, EN, RW)
-    if T < 0:
-        raise ValueError("merge tile walk failed to advance")
-    k_starts = np.empty(T + 1, dtype=np.int64)
-    r_start = np.empty(T, dtype=np.int32)
-    lrow = np.empty(T, dtype=np.int32)
-    cnt = np.empty(T, dtype=np.int32)
-    flat_k = np.empty(T * EN, dtype=np.int64)
-    rel = np.empty(T * EN, dtype=np.int32)
-    pend = np.empty(T * RW, dtype=np.int32)
-    owner_idx = np.empty(n_rows, dtype=np.int32)
-    rc = lib.spmv_merge_fill(n_rows, nnz, Ap, row_of_nnz, EN, RW, T,
-                             k_starts, r_start, lrow, cnt, flat_k, rel,
-                             pend, owner_idx)
-    if rc != 0:
-        raise ValueError(_err(lib))
-    return {
-        "n_tiles": int(T), "k_starts": k_starts, "r_start": r_start,
-        "lrow": lrow, "cnt": cnt,
-        "flat_k": flat_k.reshape(T, EN), "rel": rel.reshape(T, EN),
-        "pend": pend.reshape(T, RW), "owner_idx": owner_idx,
-    }
-
-
-def ell_chunks(sel_rows: np.ndarray, Ap: np.ndarray, W: int, nnz: int):
-    """Native ELL chunk plan. Returns (flat_k (V,W) int64, valid (V,W) bool,
-    vrow_row (V,) int32)."""
-    lib = _load()
-    if lib is None:
-        raise NotImplementedError("native library unavailable")
-    sel_rows = np.ascontiguousarray(sel_rows, dtype=np.int64)
-    Ap = np.ascontiguousarray(Ap, dtype=np.int64)
-    V = lib.spmv_ell_count_chunks(sel_rows.shape[0], sel_rows, Ap, W)
-    flat_k = np.empty(V * W, dtype=np.int64)
-    valid = np.empty(V * W, dtype=np.uint8)
-    vrow_row = np.empty(V, dtype=np.int32)
-    rc = lib.spmv_ell_fill(sel_rows.shape[0], sel_rows, Ap, W, V, nnz,
-                           flat_k, valid, vrow_row)
-    if rc != 0:
-        raise ValueError(_err(lib))
-    return (flat_k.reshape(V, W), valid.reshape(V, W).astype(bool), vrow_row)
-
-
-def route_tiles(src: np.ndarray, dedupe: bool = True):
-    """Native 3-stage tile routing (see ops/routing.py for semantics).
-    src: (T,128,128) int32. Returns (s1, s2, s3) uint8 arrays.
-    dedupe=False asserts the map is injective per tile (no repeated
-    (r1,c1)->r2 flow), skipping the stamp-table pass."""
-    lib = _load()
-    if lib is None:
-        raise NotImplementedError("native library unavailable")
-    src = np.ascontiguousarray(src, dtype=np.int32)
-    T = src.shape[0]
-    s1 = np.empty((T, 128, 128), dtype=np.uint8)
-    s2 = np.empty((T, 128, 128), dtype=np.uint8)
-    s3 = np.empty((T, 128, 128), dtype=np.uint8)
-    rc = lib.spmv_route_tiles(T, src.reshape(-1), s1.reshape(-1),
-                              s2.reshape(-1), s3.reshape(-1),
-                              1 if dedupe else 0)
-    if rc != 0:
-        raise ValueError(_err(lib))
-    return s1, s2, s3
-
-
-# Grow-only scratch buffers for the planner's large transient arrays.
-# Page faults on fresh 100-700 MB allocations dominate the native
-# split simulation (measured 12x: 1.9s cold vs 0.16s warm at 16.8M
-# nnz); reusing warm pages across passes/retries/plans removes that.
-# Keys are (name, level) so arrays alive simultaneously within one
-# plan build never share a buffer; the planner is single-threaded.
-_arena: dict = {}
-
-
-def _scratch(key, n, dtype):
-    buf = _arena.get(key)
-    if buf is None or buf.dtype != np.dtype(dtype) or buf.size < n:
-        buf = np.empty(n, dtype)
-        _arena[key] = buf
-    return buf[:n]
-
-
-def clear_arena():
-    _arena.clear()
-
-
-def plan_split(cur, grp, n_groups: int, sbt: int, Q: int,
-               B0, out_rows: int, sort_payload: bool,
-               level: int = 0, gmode: int = 0, radix: int = 1):
-    """Native one-pass shuffle split simulation (see
-    kernels/shuffle.py _plan_split). Returns (src, starts, new_cur).
-
-    src and new_cur are arena scratch: src is owned by the caller
-    only until it plans routes for the pass (same plan build);
-    new_cur only until the NEXT pass's plan_split(level+1) returns
-    (ping-pong by level parity). Callers that keep them longer must
-    copy.
-    """
-    lib = _load()
-    if lib is None:
-        raise NotImplementedError("native library unavailable")
-    TILE = 128 * 128
-    cur = np.ascontiguousarray(cur, dtype=np.int64)
-    if gmode == 0:
-        grp = np.ascontiguousarray(grp, dtype=np.int32)
-    else:  # groups derived from cur in C; pass a dummy pointer
-        grp = np.zeros(1, dtype=np.int32)
-    B0 = np.ascontiguousarray(B0, dtype=np.int64)
-    n_tiles = cur.shape[0] // TILE
-    n_steps = n_tiles // sbt
-    src = _scratch(("split_src", level), n_tiles * TILE, np.int32)
-    starts = np.zeros(n_steps * sbt * n_groups, dtype=np.int32)
-    new_cur = _scratch(("split_cur", level & 1), out_rows * 128,
-                       np.int64)
-    if np.shares_memory(cur, new_cur):  # same-parity misuse guard
-        new_cur = np.empty(out_rows * 128, np.int64)
-    rc = lib.spmv_plan_split(
-        n_tiles, sbt, n_groups, Q, 1 if sort_payload else 0,
-        cur, grp, B0.reshape(-1), out_rows, src, starts, new_cur,
-        gmode, radix)
-    if rc != 0:
-        raise ValueError(_err(lib))
-    return (src.reshape(n_tiles, 128, 128),
-            starts.reshape(n_steps, sbt, n_groups), new_cur)
-
-
-def geom_mid1(dt, st, G1: int, r1: int, q1: int, sbt: int):
-    """mid = (dt%G1)*r1 + ((st//sbt)*sbt*q1)//128, into arena scratch."""
-    lib = _load()
-    if lib is None:
-        raise NotImplementedError("native library unavailable")
-    n = dt.shape[0]
-    mid = _scratch(("geom_mid",), n, np.int32)
-    lib.spmv_geom_mid1(n, dt, st, G1, r1, q1, sbt, mid)
-    return mid
-
-
-def geom_sub_next(dt, mid, divg: int, G: int, radix: int, spp: int,
-                  r: int, q: int, sbt: int, key: str):
-    """sub = ((dt//divg)%G * radix + (mid//sbt)//spp)*r
-    + (((mid//sbt)%spp)*sbt*q)//128, into arena scratch `key`."""
-    lib = _load()
-    if lib is None:
-        raise NotImplementedError("native library unavailable")
-    n = dt.shape[0]
-    sub = _scratch(("geom_sub", key), n, np.int32)
-    lib.spmv_geom_sub_next(n, dt, mid, divg, G, radix, spp, r, q, sbt,
-                           sub)
-    return sub
-
-
-def geom_key_max(base, dt, mul: int, divd: int, G: int, use_mod: bool,
-                 n_keys: int) -> int:
-    """max bincount of base*mul + ((dt//divd)%G if use_mod else
-    dt//divd)."""
-    lib = _load()
-    if lib is None:
-        raise NotImplementedError("native library unavailable")
-    mx = lib.spmv_geom_key_max(base.shape[0], base, dt, mul, divd, G,
-                               1 if use_mod else 0, n_keys)
-    if mx < 0:
-        raise ValueError(_err(lib))
-    return int(mx)
-
-
-def scatter_slots(fin, n_out: int):
-    """slot_of_dst assembly: out[fin[s]] = s for live in-range fin."""
-    lib = _load()
-    if lib is None:
-        raise NotImplementedError("native library unavailable")
-    fin = np.ascontiguousarray(fin, np.int64)
-    out = np.empty(n_out, np.int64)
-    lib.spmv_scatter_slots(fin.shape[0], fin, n_out, out)
-    return out
-
-
-def plan_scan(k_starts, bases, slot_of_dst, row_ids, bin_rows: int):
-    """Native per-final-tile scan stream construction, v3 exact-rank
-    layout (see kernels/stream.py _plan_scan). `bases` is each tile's
-    128-aligned first row (rel = row - bases[f] must land in
-    [0, bin_rows)). Returns the stream dict pieces before routing:
-    (perm_src, relid, src2e, src2p, valid2, counts)."""
-    lib = _load()
-    if lib is None:
-        raise NotImplementedError("native library unavailable")
-    TILE = 128 * 128
-    F = k_starts.shape[0] - 1
-    P = bin_rows // 128
-    k_starts = np.ascontiguousarray(k_starts, np.int64)
-    bases = np.ascontiguousarray(bases, np.int64)
-    slot_of_dst = np.ascontiguousarray(slot_of_dst, np.int64)
-    row_ids = np.ascontiguousarray(row_ids, np.int64)
-    perm_src = np.empty((F, 128, 128), np.int32)
-    relid = np.empty((F, TILE), np.int16)
-    src2e = np.empty((F, 128, 128), np.int32)
-    src2p = np.empty((F, 128, 128), np.int32)
-    valid2 = np.empty((F, P, 128), np.int8)
-    counts = np.zeros(F, np.int32)
-    rc = lib.spmv_plan_scan3(
-        F, k_starts, bases, slot_of_dst.reshape(-1), row_ids, bin_rows,
-        perm_src.reshape(-1), relid.reshape(-1), src2e.reshape(-1),
-        src2p.reshape(-1), valid2.reshape(-1), counts)
-    if rc != 0:
-        raise ValueError(_err(lib))
-    return (perm_src, relid, src2e, src2p, valid2, counts)
 
 
 def spgemm_symbolic(n_rows: int, n_cols_b: int, Ap, Aj, Bp, Bj):

@@ -1,7 +1,7 @@
 """Differentiable SpMV — autodiff support the CUDA reference cannot have.
 
 The reference stops at ``y = A @ x`` (ref: include/spmv.h:29-34); a
-TPU-native framework lives inside JAX's transform system, so its
+JAX library lives inside JAX's transform system, so its
 matvec should compose with ``jax.grad`` / ``jax.vjp`` / ``jax.jit``.
 Two paths, by what is being differentiated:
 
@@ -9,8 +9,8 @@ Two paths, by what is being differentiated:
    solvers, PageRank-style fixed operators, GNNs with fixed adjacency).
    `SparseOperator` wraps any registered kernel kind in a
    ``jax.custom_vjp`` whose backward pass is one SpMV with the cached
-   transpose ``A^T`` — both directions run the fast planned kernels,
-   and both plans amortize across calls.
+   transpose ``A^T`` — both directions run the registered kernels,
+   and both device copies amortize across calls.
 
 2. **Grad w.r.t. the nonzero values too** (learned edge weights).
    `spmv_values(A, Ax, x)` takes the values as a live JAX array over

@@ -2,11 +2,9 @@
 
 The reference benchmark consumes SuiteSparse matrices as-is; a
 standalone sparse framework should also ship the standard bandwidth-
-reducing reorder, because on TPU locality is not a cache nicety but
-the planner's cost model: a smaller bandwidth means fewer distinct x
-windows per gather tile (kernels/stream.py routes by column window)
-and shorter halo lists in the multi-chip partition
-(parallel/partition.py). (It is NOT a triangular-solve optimization:
+reducing reorder: a smaller bandwidth keeps the x gather local (the
+GPU's L2 holds nearby x), and shortens the halo lists in the
+multi-device partition (parallel/partition.py). (It is NOT a triangular-solve optimization:
 a band's lower triangle is one long dependency chain, the worst case
 for the level schedule in kernels/trisolve.py.)
 

@@ -1,6 +1,6 @@
 """Semiring abstraction for generalized SpMV.
 
-TPU-native analog of the reference's static functor concept
+The analog of the reference's static functor concept
 (ref: include/spmv/merge_genl/agent_spmv_orig.cuh:98-100 and
 merge_genl.cuh:22-38): a semiring provides
 
@@ -110,8 +110,6 @@ def _or_and_combine(a, x):
     t = (a != 0) & (x != 0)
     dt = np.result_type(getattr(a, "dtype", type(a)),
                         getattr(x, "dtype", type(x)))
-    # select rather than i1-cast: Mosaic supports vector selects
-    # everywhere but not every bool->value cast.
     return jnp.where(t, jnp.ones((), dt), jnp.zeros((), dt))
 
 

@@ -1,9 +1,5 @@
 from spmv_tpu.parallel.partition import RowPartition, partition_rows
 from spmv_tpu.parallel.dist_spmv import DistributedSpMV, distribute_csr
-from spmv_tpu.parallel.dist_stream import (
-    DistributedStreamSpMV,
-    distribute_stream,
-)
 from spmv_tpu.parallel.bootstrap import (
     init_distributed,
     make_mesh,
@@ -15,8 +11,6 @@ __all__ = [
     "partition_rows",
     "DistributedSpMV",
     "distribute_csr",
-    "DistributedStreamSpMV",
-    "distribute_stream",
     "init_distributed",
     "make_mesh",
     "put_global",

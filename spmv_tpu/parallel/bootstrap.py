@@ -1,20 +1,17 @@
-"""Multi-host bootstrap: process-group init + topology-aware meshes.
+"""Multi-process bootstrap: process-group init + meshes.
 
 The reference is single-process/single-GPU (SURVEY §2: no MPI/NCCL,
-`cudaSetDevice(0)` at main.cu:53 is its whole device layer). The TPU
-framework's scaling layer instead spans *processes*: one JAX process
-per host, chips linked by ICI within a slice and DCN across slices.
-This module is the entry point that turns N separate processes into
-one mesh the rest of `spmv_tpu.parallel` can shard over:
+`cudaSetDevice(0)` at main.cu:53 is its whole device layer). This
+module turns N separate processes into one mesh the rest of
+`spmv_tpu.parallel` can shard over:
 
-- `init_distributed()` wraps `jax.distributed.initialize` (idempotent,
-  env-autodetecting — on Cloud TPU the coordinator/process-id are
-  discovered from the TPU metadata, so zero-arg works).
-- `make_mesh()` builds a 1-D (or named multi-axis) `Mesh` over the
-  *global* device list with `mesh_utils.create_device_mesh`, which
-  orders devices so neighboring mesh coordinates are ICI neighbors —
-  the all_to_all halo exchange in dist_spmv then rides ICI links,
-  falling back to DCN only across slice boundaries.
+- `init_distributed()` wraps `jax.distributed.initialize` (idempotent;
+  a single-process run never touches it). A process group needs its
+  coordinator address, process count and id, given as arguments or
+  through JAX's own environment variables.
+- `make_mesh()` builds a flat `Mesh` over the global device list. The
+  GPUs of one host are joined all to all by NVLink, so the device order
+  carries no topology and the mesh follows the algorithm alone.
 - `put_global()` places a host-replicated numpy array onto a sharding
   that may span non-addressable devices: every process contributes
   its addressable shards via `jax.make_array_from_callback`. This is
@@ -29,7 +26,6 @@ import os
 
 import jax
 import numpy as np
-from jax.experimental import mesh_utils
 from jax.sharding import Mesh, NamedSharding
 
 _initialized = False
@@ -49,15 +45,9 @@ def init_distributed(coordinator_address: str | None = None,
     if _initialized or jax.process_count() > 1:
         _initialized = True
         return jax.process_count()
-    # TPU_WORKER_HOSTNAMES with a single entry means a one-host job
-    # (some runtimes set it unconditionally); only a multi-entry list
-    # implies a process group to join.
-    workers = os.environ.get("TPU_WORKER_HOSTNAMES", "")
     configured = (coordinator_address is not None
                   or (num_processes or 1) > 1
-                  or os.environ.get("JAX_COORDINATOR_ADDRESS")
-                  or os.environ.get("COORDINATOR_ADDRESS")
-                  or "," in workers)
+                  or os.environ.get("JAX_COORDINATOR_ADDRESS"))
     if not configured:
         _initialized = True
         return 1
@@ -74,19 +64,16 @@ def make_mesh(axis: str = "shards",
               devices=None,
               shape: tuple[int, ...] | None = None,
               axis_names: tuple[str, ...] | None = None) -> Mesh:
-    """A Mesh over the global device list, ICI-contiguous.
+    """A Mesh over the global device list, in device order.
 
-    Default: one flat axis named `axis` over every chip in the job
+    Default: one flat axis named `axis` over every device in the job
     (the layout dist_spmv's 1-D row partition wants). Pass
-    `shape`/`axis_names` for multi-axis meshes; `mesh_utils` folds the
-    physical torus coordinates so ring collectives stay on ICI.
+    `shape`/`axis_names` for multi-axis meshes.
     """
     devices = list(jax.devices()) if devices is None else list(devices)
     if shape is None:
         shape, axis_names = (len(devices),), (axis,)
-    mesh_devices = mesh_utils.create_device_mesh(
-        shape, devices=devices, allow_split_physical_axes=True)
-    return Mesh(mesh_devices, axis_names)
+    return Mesh(np.array(devices).reshape(shape), axis_names)
 
 
 def put_global(host_array, sharding: NamedSharding) -> jax.Array:

@@ -1,10 +1,9 @@
-"""Multi-chip SpMV over a device mesh (shard_map + ICI collectives).
+"""Multi-device SpMV over a device mesh (shard_map + collectives).
 
-The layer the single-GPU reference lacks (SURVEY §2/§7). v2 design
-(VERDICT r1 item 4):
+The layer the single-GPU reference lacks (SURVEY §2/§7):
 
 - **Halo-compacted exchange**: the plan (partition.build_halo_plan)
-  knows exactly which x entries each chip reads from each owner;
+  knows exactly which x entries each device reads from each owner;
   the runtime exchange is ONE `all_to_all` of value payloads sized by
   the halo (not an all-gather of every column). Remote column indices
   are remapped at plan time into halo-table coordinates — zero index
@@ -14,12 +13,13 @@ The layer the single-GPU reference lacks (SURVEY §2/§7). v2 design
   block (depends on the received table). XLA's latency-hiding
   scheduler runs the `all_to_all` concurrently with the self matvec
   because the data dependencies permit it; y = reduce(y_self, y_halo).
-- **Pallas local kernel**: each block runs the ELL group-reduce kernel
-  (kernels/ell.py machinery) inside shard_map — per-chip compute is a
-  real TPU kernel, not an XLA scatter fallback.
+- **Local matvec**: each block runs the single-device merge-path
+  kernel inside shard_map (a Kronecker shard keeps its hub rows), or
+  the plain gather + sorted segment reduce for the rings and dtypes
+  the kernel does not serve.
 
-`mode="allgather"` keeps the v1 full-gather path (useful as a
-baseline and for meshes where the halo is nearly everything).
+`mode="allgather"` keeps the full-gather path (useful as a baseline
+and for meshes where the halo is nearly everything).
 """
 
 from __future__ import annotations
@@ -34,88 +34,14 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from spmv_tpu import config
-from spmv_tpu.formats import CSR, COO, coo_to_csr
-from spmv_tpu.kernels.ell import build_ell_plan, SUBLANES
-from spmv_tpu.kernels.pallas_utils import LANES
+from spmv_tpu.formats import CSR
+from spmv_tpu.kernels.merge import merge_path_rows, ring_and_dtype_served
 from spmv_tpu.ops.semiring import (
     Semiring,
     PLUS_TIMES,
     segment_reduce_sorted,
 )
 from spmv_tpu.parallel.partition import HaloPlan, build_halo_plan
-
-
-def _stack_ell(plans, R):
-    """Stack per-shard EllPlans, padded to uniform (Tv, V)."""
-    Tv = max(p.n_tiles for p in plans)
-    V = max(p.n_vrows for p in plans)
-    n = len(plans)
-    W = plans[0].width
-    aj = np.zeros((n, Tv, SUBLANES, LANES), np.int32)
-    ax = np.zeros((n, Tv, SUBLANES, LANES), np.asarray(plans[0].ax).dtype)
-    valid = np.zeros((n, Tv, SUBLANES, LANES), bool)
-    vrow = np.full((n, V), R, np.int32)  # pad rows -> segment R (dropped)
-    for s, p in enumerate(plans):
-        aj[s, :p.n_tiles] = np.asarray(p.aj)
-        ax[s, :p.n_tiles] = np.asarray(p.ax)
-        valid[s, :p.n_tiles] = np.asarray(p.valid)
-        vrow[s, :p.n_vrows] = np.asarray(p.vrow_row)
-    return {"aj": aj, "ax": ax, "valid": valid, "vrow": vrow,
-            "Tv": Tv, "V": V, "W": W}
-
-
-def _block_ell_plans(rows, cols, vals, R, W):
-    """Per-shard ELL plans for a (rows, cols, vals) padded block whose
-    pad entries carry row id R (excluded).
-
-    Only rows that actually have entries are packed: R is the max
-    rows/shard, and a block (the halo especially) often touches a
-    small subset — packing arange(R) would spend >=1 chunk per empty
-    row (53K wasted chunks/shard measured on an 8-shard power-law).
-    Missing rows come out of the segment reduce as the identity, which
-    is exactly what sr.reduce(y_self, y_halo) needs."""
-    n = rows.shape[0]
-    plans = []
-    for s in range(n):
-        m = rows[s] < R
-        coo = COO(R, int(cols.max() + 1) if cols.size else 1,
-                  rows[s][m].astype(np.int64),
-                  cols[s][m].astype(np.int64), vals[s][m])
-        nonempty = np.unique(coo.rows)
-        if nonempty.size == 0:
-            nonempty = np.zeros(1, np.int64)  # degenerate: one empty row
-        plans.append(build_ell_plan(
-            coo_to_csr(coo, offset_dtype=np.int64), nonempty, W))
-    return _stack_ell(plans, R)
-
-
-def _block_width(rows, R) -> int:
-    """ELL lane width for a distributed block, chosen by exactly
-    minimizing the stacked tile count (= padded slots = HBM traffic).
-
-    A mean-based pick (select_width) misjudges power-law blocks: the
-    hub rows are insensitive to W (ceil(len/W)*W ~ len) while every
-    short row pays ceil(len/W)*W - len, so the slot-count argmin lands
-    near the TAIL's width, not the mean's. Tiles are what the stacked
-    shard_map kernel iterates and streams, so minimize max-over-shards
-    tiles; ties prefer wider W (fewer cross-lane segments per row)."""
-    candidates = (2, 4, 8, 16, 32, 64, 128)
-    slots_per_tile = SUBLANES * LANES
-    best_w, best_t = 2, None
-    for W in candidates:
-        worst = 1
-        for s in range(rows.shape[0]):
-            r = rows[s][rows[s] < R]
-            if r.size == 0:
-                continue
-            lens = np.bincount(r - r.min())
-            lens = lens[lens > 0]
-            chunks = int(((lens + W - 1) // W).sum())
-            worst = max(worst, (chunks * W + slots_per_tile - 1)
-                        // slots_per_tile)
-        if best_t is None or worst <= best_t:
-            best_w, best_t = W, worst
-    return best_w
 
 
 @dataclasses.dataclass
@@ -161,65 +87,36 @@ class DistributedSpMV:
             d["send_idx"], d["recv_idx"], d["self"], d["halo"],
             d["idx_own"], d["own_start"], self.unpad_idx, x,
             mesh=self.mesh, axis=self.axis, R=self.plan.R,
-            shapes=self._shapes, sr=semiring, mode=mode,
-            interpret=config.use_interpret(),
+            sr=semiring, mode=mode,
             export_meta=(tuple(int(r) for r in self.plan.export_rows),
                          bool(self.plan.export_flag.any())),
         )
 
-    @property
-    def _shapes(self):
-        s, h = self.dev["self"], self.dev["halo"]
-        return (int(s["aj"].shape[1]), int(s["vrow"].shape[1]),
-                int(self.dev["W_self"]),
-                int(h["aj"].shape[1]), int(h["vrow"].shape[1]),
-                int(self.dev["W_halo"]))
 
-
-def _local_ell_matvec(aj, ax, valid, vrow, x, *, W, Tv, V, R,
-                      sr: Semiring, identity, interpret):
-    """ELL group-reduce matvec for one shard's block (runs inside
-    shard_map; the group reduction is the Pallas kernel from
-    kernels/ell.py)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    from spmv_tpu.kernels.ell import _group_reduce_kernel
-
-    val_dtype = x.dtype
-    xg = jnp.take(x, aj.reshape(-1)).reshape(aj.shape)
-    prod = sr.combine(ax.astype(val_dtype), xg)
-    prod = jnp.where(valid, prod, identity)
-
-    kernel = _group_reduce_kernel(sr, identity, W, "tree")
-    reduced = pl.pallas_call(
-        kernel,
-        grid=(Tv,),
-        in_specs=[pl.BlockSpec((1, SUBLANES, LANES), lambda t: (t, 0, 0))],
-        out_specs=pl.BlockSpec((1, SUBLANES, LANES), lambda t: (t, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((Tv, SUBLANES, LANES), val_dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel",)),
-        interpret=interpret,
-    )(prod)
-    y_vrow = reduced.reshape(Tv * SUBLANES, LANES)[:, ::W].reshape(-1)[:V]
-    return segment_reduce_sorted(y_vrow, vrow, R + 1, sr, identity)[:R]
+def _local_matvec(rows, cols, vals, x, *, R, sr: Semiring, identity):
+    """One shard's block. Pad entries carry row id R, past the block's
+    rows, and are dropped."""
+    vals = vals.astype(x.dtype)
+    if ring_and_dtype_served(x.dtype, sr):
+        return merge_path_rows(rows, cols, vals, x, sr=sr, n_rows=R,
+                               interpret=config.use_interpret()
+                               ).astype(x.dtype)
+    prod = sr.combine(vals, jnp.take(x, cols))
+    return segment_reduce_sorted(prod, rows, R + 1, sr, identity)[:R]
 
 
 @functools.partial(jax.jit, static_argnames=(
-    "mesh", "axis", "R", "shapes", "sr", "mode", "interpret",
-    "export_meta"))
+    "mesh", "axis", "R", "sr", "mode", "export_meta"))
 def _dist_matvec(send_idx, recv_idx, blk_self, blk_halo, idx_own,
                  own_start, unpad_idx, x,
-                 *, mesh, axis, R, shapes, sr, mode, interpret,
-                 export_meta):
-    Tvs, Vs, Ws, Tvh, Vh, Wh = shapes
+                 *, mesh, axis, R, sr, mode, export_meta):
     n = mesh.shape[axis]
     identity = float(sr.identity_for(np.dtype(x.dtype)))
     # plan-time constants, identical on every shard (baked in)
     export_rows, any_export = export_meta
 
-    def local(send_idx_l, recv_idx_l, ajs, axs, vds, vrs,
-              ajh, axh, vdh, vrh, idx_own_l, own_start_l, x_l):
+    def local(send_idx_l, recv_idx_l, rs, cs, vs, rh, ch, vh,
+              idx_own_l, own_start_l, x_l):
         xl = x_l
         if mode == "allgather":
             # v1 baseline: gather every column, then read the SAME
@@ -238,14 +135,10 @@ def _dist_matvec(send_idx, recv_idx, blk_self, blk_halo, idx_own,
             recv = jax.lax.all_to_all(
                 send, axis, split_axis=0, concat_axis=0, tiled=False)
             table = recv.reshape(-1)
-        y_self = _local_ell_matvec(
-            ajs[0], axs[0], vds[0], vrs[0], xl,
-            W=Ws, Tv=Tvs, V=Vs, R=R, sr=sr, identity=identity,
-            interpret=interpret)
-        y_halo = _local_ell_matvec(
-            ajh[0], axh[0], vdh[0], vrh[0], table,
-            W=Wh, Tv=Tvh, V=Vh, R=R, sr=sr, identity=identity,
-            interpret=interpret)
+        y_self = _local_matvec(rs[0], cs[0], vs[0], xl, R=R, sr=sr,
+                               identity=identity)
+        y_halo = _local_matvec(rh[0], ch[0], vh[0], table, R=R, sr=sr,
+                               identity=identity)
         y = sr.reduce(y_self, y_halo)
         # owned output block: slot j = local row idx_own[j] (-1 -> id)
         io = idx_own_l[0]
@@ -254,12 +147,12 @@ def _dist_matvec(send_idx, recv_idx, blk_self, blk_halo, idx_own,
         if any_export:
             # rows split across shards: every shard whose entry range
             # starts mid-row exports its partial for that first row;
-            # the row's owner reduces them in (the cross-chip carry
+            # the row's owner reduces them in (the cross-device carry
             # fixup — SURVEY §7.6 boundary-partial combine). Tiny:
             # one value per shard, one all_gather. export_rows is a
             # plan-time constant, so the same-row grouping is done in
             # NumPy at trace time and the traced graph is O(1) in the
-            # shard count (VERDICT r3 item 7): one static permutation,
+            # shard count: one static permutation,
             # one segment reduce, one distinct-index scatter.
             parts = jax.lax.all_gather(y[:1], axis, tiled=True)  # (n,)
             er = np.asarray(export_rows)
@@ -288,22 +181,18 @@ def _dist_matvec(send_idx, recv_idx, blk_self, blk_halo, idx_own,
                 y_own = y_own.at[pos].set(upd, mode="drop")
         return y_own[None, :]
 
+    blk = P(axis, None)
+    # check_vma=False: the kernel's pallas_call states no varying axes
     y_sharded = shard_map(
         local,
         mesh=mesh,
+        check_vma=False,
         in_specs=(P(axis, None, None), P(axis, None, None),
-                  P(axis, None, None, None), P(axis, None, None, None),
-                  P(axis, None, None, None), P(axis, None),
-                  P(axis, None, None, None), P(axis, None, None, None),
-                  P(axis, None, None, None), P(axis, None),
-                  P(axis, None), P(axis, None),
-                  P(axis)),
-        out_specs=P(axis, None),
-        check_vma=False,  # pallas_call outputs carry no vma metadata
-    )(send_idx, recv_idx, blk_self["aj"], blk_self["ax"],
-      blk_self["valid"], blk_self["vrow"], blk_halo["aj"],
-      blk_halo["ax"], blk_halo["valid"], blk_halo["vrow"],
-      idx_own, own_start, x)
+                  blk, blk, blk, blk, blk, blk, blk, blk, P(axis)),
+        out_specs=blk,
+    )(send_idx, recv_idx, blk_self["rows"], blk_self["cols"],
+      blk_self["vals"], blk_halo["rows"], blk_halo["cols"],
+      blk_halo["vals"], idx_own, own_start, x)
     y_flat = y_sharded.reshape(-1)
     return jnp.take(y_flat, unpad_idx)
 
@@ -316,14 +205,6 @@ def distribute_csr(
 ) -> DistributedSpMV:
     n = mesh.shape[axis]
     plan = build_halo_plan(A, n, balance=balance)
-    R = plan.R
-
-    W_self = _block_width(plan.rows_self, R)
-    W_halo = _block_width(plan.rows_halo, R)
-    blk_self = _block_ell_plans(plan.rows_self, plan.cols_self,
-                                plan.vals_self, R, W_self)
-    blk_halo = _block_ell_plans(plan.rows_halo, plan.cols_halo,
-                                plan.vals_halo, R, W_halo)
 
     row_starts = plan.row_starts  # ownership starts
     shard_of = np.searchsorted(row_starts, np.arange(A.n_rows),
@@ -334,19 +215,19 @@ def distribute_csr(
 
     from spmv_tpu.parallel.bootstrap import put_global
 
-    shd3 = NamedSharding(mesh, P(axis))
-    put = lambda a: put_global(np.asarray(a), shd3)
+    shd = NamedSharding(mesh, P(axis))
+    put = lambda a: put_global(np.asarray(a), shd)
     dev = {
         "send_idx": put(plan.send_idx),
         # recv_idx[s, t] = send_idx[t, s]: what owner t sends shard s
         # (the allgather-baseline table construction needs it locally)
         "recv_idx": put(plan.send_idx.transpose(1, 0, 2).copy()),
-        "self": {k: put(blk_self[k]) for k in ("aj", "ax", "valid", "vrow")},
-        "halo": {k: put(blk_halo[k]) for k in ("aj", "ax", "valid", "vrow")},
+        "self": {"rows": put(plan.rows_self), "cols": put(plan.cols_self),
+                 "vals": put(plan.vals_self)},
+        "halo": {"rows": put(plan.rows_halo), "cols": put(plan.cols_halo),
+                 "vals": put(plan.vals_halo)},
         "idx_own": put(plan.idx_own),
         "own_start": put(plan.row_starts[:n, None].astype(np.int32)),
-        "W_self": W_self,
-        "W_halo": W_halo,
     }
     return DistributedSpMV(
         mesh=mesh,

@@ -1,8 +1,8 @@
-"""Row partitioning + halo exchange planning for multi-chip SpMV.
+"""Row partitioning + halo exchange planning for multi-device SpMV.
 
 The reference is single-GPU (ref: common.cuh:8 `USED_DEVICE 0`,
 SURVEY §2 'Distributed communication backend: none'); this layer is
-the NEW capability the TPU build adds (SURVEY §7 step 6, BASELINE.json
+a capability this library adds (SURVEY §7 step 6, BASELINE.json
 north-star):
 
 - a 1-D partition in EXACT nnz/n entry ranges that may split rows at
@@ -16,7 +16,7 @@ north-star):
   receiver's halo-table coordinates, so the runtime exchange is a
   single `all_to_all` of value payloads — no index traffic, no runtime
   translation, and comm volume equals the halo size instead of
-  all-gathering every column (VERDICT r1 item 4).
+  all-gathering every column.
 
 Each shard's nonzeros are split into a SELF part (columns the shard
 owns) and a HALO part (remote columns): the self matvec has no
@@ -276,10 +276,8 @@ def build_halo_plan(A: CSR, n_shards: int,
         # halo entries: remap each col to its table position t*M + slot
         hm = ~sm
         hc = p["cols"][hm]
-        pos_of = {int(c): int(t * M + j) for c, t, j in
-                  zip(p["hcols"], p["howner"], p["slot"])}
-        mapped = np.fromiter((pos_of[int(c)] for c in hc),
-                             dtype=np.int64, count=hc.size)
+        k = np.searchsorted(p["hcols"], hc)
+        mapped = p["howner"][k] * M + p["slot"][k]
         rows_halo[s, :hc.size] = p["rows"][hm]
         cols_halo[s, :hc.size] = mapped
         vals_halo[s, :hc.size] = p["vals"][hm]

@@ -9,10 +9,14 @@ through the registry (any registered kind) plus vector work XLA fuses
 into a handful of HBM passes, with optional Jacobi or ILU(0)
 preconditioning (kernels/trisolve.py).
 
-TPU notes: the loop carries only O(n) vectors; convergence tests ride
-in the carry (no host sync per iteration); the one host decision —
-total iteration count — is `maxiter`, a static bound. Callers read
+The loop carries only O(n) vectors; convergence tests ride in the
+carry (no host sync per iteration); the one host decision — total
+iteration count — is `maxiter`, a static bound. Callers read
 `info["iters"]`/`info["resnorm"]` afterwards (one device fetch).
+
+Every inner product asks for full float32 precision: on a GPU a
+float32 dot may otherwise run in TF32, which keeps about three
+decimal digits.
 """
 
 from __future__ import annotations
@@ -26,6 +30,10 @@ import numpy as np
 from spmv_tpu.formats import CSR
 from spmv_tpu.kernels.trisolve import ilu0, ilu0_apply
 from spmv_tpu.ops.registry import spmv
+
+
+def _dot(a, b):
+    return jnp.vdot(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 def _matvec(A: CSR, kind: str) -> Callable:
@@ -66,7 +74,7 @@ def cg(A: CSR, b, *, x0=None, rtol: float = 1e-6, atol: float = 0.0,
 
     Matches scipy.sparse.linalg.cg semantics: stop when
     ||r|| <= max(rtol*||b||, atol). `kind` picks the SpMV kernel
-    (any registered kind; "stream" for large matrices on TPU).
+    (any registered kind).
     """
     if A.n_rows != A.n_cols:
         raise ValueError("cg requires a square matrix")
@@ -85,7 +93,7 @@ def cg(A: CSR, b, *, x0=None, rtol: float = 1e-6, atol: float = 0.0,
     r = b - mv(x)
     z = psolve(r)
     p = z
-    rz = jnp.vdot(r, z)
+    rz = _dot(r, z)
 
     def cond(state):
         x, r, z, p, rz, k = state
@@ -94,12 +102,12 @@ def cg(A: CSR, b, *, x0=None, rtol: float = 1e-6, atol: float = 0.0,
     def body(state):
         x, r, z, p, rz, k = state
         Ap_ = mv(p)
-        denom = jnp.vdot(p, Ap_)
+        denom = _dot(p, Ap_)
         alpha = jnp.where(denom != 0, rz / denom, 0.0)
         x = x + alpha * p
         r = r - alpha * Ap_
         z = psolve(r)
-        rz_new = jnp.vdot(r, z)
+        rz_new = _dot(r, z)
         beta = jnp.where(rz != 0, rz_new / rz, 0.0)
         p = z + beta * p
         return (x, r, z, p, rz_new, k + 1)
@@ -130,7 +138,7 @@ def bicgstab(A: CSR, b, *, x0=None, rtol: float = 1e-6, atol: float = 0.0,
 
     r = b - mv(x)
     rhat = r  # shadow residual, fixed
-    rho = jnp.vdot(rhat, r)
+    rho = _dot(rhat, r)
     p = r
 
     def cond(state):
@@ -141,16 +149,16 @@ def bicgstab(A: CSR, b, *, x0=None, rtol: float = 1e-6, atol: float = 0.0,
         x, r, p, rho, k, brk = state
         ph = psolve(p)
         v = mv(ph)
-        denom = jnp.vdot(rhat, v)
+        denom = _dot(rhat, v)
         alpha = jnp.where(denom != 0, rho / denom, 0.0)
         s = r - alpha * v
         sh = psolve(s)
         t = mv(sh)
-        tt = jnp.vdot(t, t)
-        omega = jnp.where(tt != 0, jnp.vdot(t, s) / tt, 0.0)
+        tt = _dot(t, t)
+        omega = jnp.where(tt != 0, _dot(t, s) / tt, 0.0)
         x = x + alpha * ph + omega * sh
         r = s - omega * t
-        rho_new = jnp.vdot(rhat, r)
+        rho_new = _dot(rhat, r)
         beta = jnp.where((rho != 0) & (omega != 0),
                          (rho_new / rho) * (alpha / omega), 0.0)
         p = r + beta * (p - omega * v)
@@ -178,7 +186,7 @@ def gmres(A: CSR, b, *, x0=None, rtol: float = 1e-6, atol: float = 0.0,
     followed by an (m+1)x(m) least-squares solve — tiny, XLA handles
     it on-chip. `maxiter` bounds total inner iterations.
 
-    TPU notes: the basis V is (m+1, n) in HBM; one matvec per inner
+    The basis V is (m+1, n) in device memory; one matvec per inner
     step, one extra matvec per cycle for the true-residual restart.
     No host sync inside the `lax.while_loop` over cycles.
     """
@@ -212,7 +220,7 @@ def gmres(A: CSR, b, *, x0=None, rtol: float = 1e-6, atol: float = 0.0,
 
             def mgs(i, wh):
                 w, H = wh
-                hij = jnp.vdot(V[i], w)
+                hij = _dot(V[i], w)
                 w = w - hij * V[i]
                 return (w, H.at[i, j].set(hij))
 
@@ -225,7 +233,8 @@ def gmres(A: CSR, b, *, x0=None, rtol: float = 1e-6, atol: float = 0.0,
         V, H = jax.lax.fori_loop(0, m, arnoldi, (V, H))
         e1 = jnp.zeros(m + 1, dtype=b.dtype).at[0].set(beta)
         y = jnp.linalg.lstsq(H, e1)[0]
-        return x + V[:m].T @ y
+        return x + jnp.matmul(V[:m].T, y,
+                              precision=jax.lax.Precision.HIGHEST)
 
     def cond(state):
         x, resnorm, k = state

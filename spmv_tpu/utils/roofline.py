@@ -1,10 +1,10 @@
-"""Roofline model: speed-of-light targets for memory-bound SpMV.
+"""Roofline model: the byte floor of memory-bound SpMV.
 
-SpMV moves, per nonzero, at least Ax (4 B fp32) + Aj (4 B int32) +
+CSR SpMV moves, per nonzero, at least Ax (4 B fp32) + Aj (4 B int32) +
 an x-gather (4 B amortized), plus per row Ap (4 B) + y (4 B)
-(BASELINE.md worked model). Speed of light = HBM_BW / bytes-per-nnz.
-The harness prints achieved-vs-SoL so every kernel is audited against
-the hardware, not against other kernels (SURVEY §7 step 7).
+(BASELINE.md worked model). Its least time is those bytes over the
+device's memory bandwidth; a kernel's share of that floor is its
+roofline share.
 """
 
 from __future__ import annotations
@@ -12,64 +12,53 @@ from __future__ import annotations
 import dataclasses
 
 import jax
-import numpy as np
 
-
-# Published HBM bandwidths per chip generation (GB/s).
-CHIP_HBM_GBPS = {
-    "v4": 1228.0,
-    "v5e": 819.0,
-    "v5p": 2765.0,
-    "v6e": 1640.0,
-    "cpu": 50.0,  # placeholder for interpret-mode runs
+# Published peaks by `device_kind` (NVIDIA H100 SXM5 data sheet: 80 GB
+# of HBM3 at 3.35 TB/s). They assume the card's full 700 W power limit;
+# report a share of them beside the card's actual limit.
+DEVICE_PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"hbm_gbps": 3350.0, "hbm_gb": 80.0},
 }
 
 
-def chip_specs() -> tuple:
-    """Best-effort (name, HBM GB/s) of the attached device."""
-    dev = jax.devices()[0]
-    kind = getattr(dev, "device_kind", "cpu").lower()
-    if "lite" in kind and "v5" in kind:
-        return "v5e", CHIP_HBM_GBPS["v5e"]
-    if "v5p" in kind or "v5 p" in kind:
-        return "v5p", CHIP_HBM_GBPS["v5p"]
-    if "v4" in kind:
-        return "v4", CHIP_HBM_GBPS["v4"]
-    if "v6" in kind:
-        return "v6e", CHIP_HBM_GBPS["v6e"]
-    if "tpu" in kind:
-        return kind, CHIP_HBM_GBPS["v5e"]
-    return "cpu", CHIP_HBM_GBPS["cpu"]
+def device_peaks(device_kind: str | None = None) -> dict:
+    """Published peaks of a device kind (default: the first device).
+    A device that is not in the table is an error, not a default."""
+    if device_kind is None:
+        device_kind = jax.devices()[0].device_kind
+    try:
+        return DEVICE_PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peaks for device kind {device_kind!r}; add it "
+            f"to spmv_tpu.utils.roofline.DEVICE_PEAKS with its source"
+        ) from None
 
 
 @dataclasses.dataclass
 class RooflineModel:
-    chip: str
+    device_kind: str
     hbm_gbps: float
     bytes_per_nnz: float
     bytes_per_row: float
 
-    def sol_nnz_per_s(self, mean_nnz_per_row: float) -> float:
-        bytes_per_nnz_eff = self.bytes_per_nnz + self.bytes_per_row / max(
-            mean_nnz_per_row, 1e-9
-        )
-        return self.hbm_gbps * 1e9 / bytes_per_nnz_eff
-
-    def sol_gflops(self, mean_nnz_per_row: float) -> float:
-        return 2.0 * self.sol_nnz_per_s(mean_nnz_per_row) / 1e9
+    def floor_s(self, nnz: int, n_rows: int) -> float:
+        """Least time: the bytes SpMV must move over peak bandwidth."""
+        return (nnz * self.bytes_per_nnz + n_rows * self.bytes_per_row) / (
+            self.hbm_gbps * 1e9)
 
 
 def speed_of_light(
-    nnz: int,
-    n_rows: int,
     value_bytes: int = 4,
     index_bytes: int = 4,
     offset_bytes: int = 4,
+    device_kind: str | None = None,
 ) -> RooflineModel:
-    chip, bw = chip_specs()
+    if device_kind is None:
+        device_kind = jax.devices()[0].device_kind
     return RooflineModel(
-        chip=chip,
-        hbm_gbps=bw,
+        device_kind=device_kind,
+        hbm_gbps=device_peaks(device_kind)["hbm_gbps"],
         bytes_per_nnz=value_bytes + index_bytes + value_bytes,  # Ax + Aj + x
         bytes_per_row=offset_bytes + value_bytes,  # Ap + y
     )

@@ -3,7 +3,7 @@
 The reference's merge_genl accepts any static functor_t
 (ref: include/spmv/merge_genl/agent_spmv_orig.cuh:98-124,
 merge_genl.cuh:22-38); here the analog is any `Semiring` object traced
-straight into the jitted kernels (VERDICT r1 item 3). These tests pin
+straight into the jitted kernels. These tests pin
 that reach with semirings that are NOT in BUILTIN_SEMIRINGS, plus the
 boolean-correctness fix for or_and and the dtype-rigor contract.
 """
@@ -69,8 +69,7 @@ def test_custom_saturating_semiring(posmat, kind):
 @pytest.mark.parametrize("kind", GENERIC_KINDS)
 def test_or_and_is_boolean_on_arbitrary_data(kind):
     # Arbitrary signed reals: or_and must treat any nonzero as true —
-    # the min/max-over-{0,1} shortcut this replaces was silently wrong
-    # here (VERDICT r1 weak item 6).
+    # a min/max-over-{0,1} shortcut would be silently wrong here.
     A = random_csr(90, 90, 700, seed=13)  # signed values
     rng = np.random.default_rng(3)
     x = rng.standard_normal(90).astype(np.float32)

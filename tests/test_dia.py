@@ -1,4 +1,4 @@
-"""DIA (diagonal-format) kind: correctness, routing, fallback."""
+"""DIA (diagonal-format) kind: correctness, routing, plain fallback."""
 
 import numpy as np
 import pytest
@@ -7,6 +7,7 @@ from spmv_tpu import spmv, spmv_ref
 from spmv_tpu.io.generate import banded_csr, power_law_csr
 from spmv_tpu.kernels.dia import diag_profile
 from spmv_tpu.ops.reference import spmv_ref_semiring
+from spmv_tpu.ops.registry import implementation
 from spmv_tpu.ops.semiring import MIN_PLUS
 
 
@@ -29,21 +30,24 @@ def test_dia_semiring():
 
 
 def test_dia_fallback_nondiagonal():
-    """Non-diagonal matrices fall through to the stream pipeline."""
+    """Non-diagonal matrices run the plain path, and say so."""
     A = power_law_csr(2000, 2000, 20000, seed=2)
     assert diag_profile(A) is None
     x = np.random.default_rng(2).standard_normal(2000).astype(np.float32)
+    assert implementation("dia", A, x) == "plain"
     y = np.asarray(spmv("dia", A, x))
     np.testing.assert_allclose(y, spmv_ref(A, x, np.float64),
                                rtol=2e-4, atol=1e-4)
 
 
 def test_csr_vector_routes_banded_to_dia():
-    """The csr-vector family auto-selects DIA for its regular-matrix
-    regime (BASELINE.md config 2)."""
+    """No hidden format switch: csr_vector runs the merge-path kernel
+    on banded input too, and `dia` is what runs DIA."""
     A = banded_csr(2000, bandwidth=4, seed=1)
     assert diag_profile(A) is not None
     x = np.random.default_rng(0).standard_normal(2000).astype(np.float32)
+    assert implementation("csr_vector", A, x) == "hopper"
+    assert implementation("dia", A, x) == "dia"
     y = np.asarray(spmv("csr_vector", A, x))
     np.testing.assert_allclose(y, spmv_ref(A, x, np.float64),
                                rtol=2e-5, atol=1e-5)

@@ -19,7 +19,8 @@ def test_harness_cli(tmp_path):
     )
     assert len(results) == 2
     for r in results:
-        assert r.kernel_s > 0
+        assert r.seconds > 0
+        assert r.implementation == {"xla": "plain", "merge": "hopper"}[r.kind]
         assert r.delta is not None and r.delta["max_abs"] < 1e-2
 
 

@@ -36,10 +36,8 @@ DEVICE_KINDS = [
 
 
 def _check(A, kind, rtol=2e-5, atol=5e-5, seed=1):
-    # atol: the stream kinds' MXU prefix-difference reduction has
-    # absolute error ~ eps_f32 * |running tile sum| ~ eps*sqrt(nnz_tile)
-    # * |v| (same reordering class as the reference's atomic fixup,
-    # ref: agent_segment_fixup.cuh); 5e-5 covers the 16K-slot tiles
+    # float32 sums taken in another order than the float64 oracle's:
+    # the merge-path tree, and atomics across tiles
     rng = np.random.default_rng(seed)
     x = rng.standard_normal(A.n_cols).astype(np.float32)
     y = np.asarray(spmv(kind, A, x))
@@ -129,9 +127,9 @@ def test_plan_cache_reuse(matrices):
 
 @pytest.mark.parametrize("kind", ["xla", "stream", "merge", "csr_vector"])
 def test_bfloat16_values(kind):
-    """bf16 A/x runs end-to-end on every kernel family; the Pallas
-    kinds accumulate in f32 so error stays at bf16 input-rounding
-    level (the TPU-native dtype; no reference analog)."""
+    """bf16 A/x runs end-to-end on every implementation; the merge-path
+    kernel accumulates in f32 so error stays at bf16 input-rounding
+    level (no reference analog)."""
     import ml_dtypes
 
     from spmv_tpu.formats import CSR

@@ -158,129 +158,6 @@ class TestCooToCsr:
         np.testing.assert_array_equal(perm, [0, 1, 2])
 
 
-class TestMergeTiles:
-    def test_matches_numpy_plan(self):
-        from spmv_tpu.kernels.merge import MergePolicy, build_merge_plan
-
-        A = power_law_csr(700, 700, 4000, seed=7)
-        pol = MergePolicy(nnz_per_tile=256, rows_per_tile=256)
-        nat = build_merge_plan(A, pol)
-        os.environ["SPMV_TPU_NO_NATIVE"] = "1"
-        try:
-            import spmv_tpu.native as n
-
-            saved = n._lib, n._tried
-            n._lib, n._tried = None, True
-            ref = build_merge_plan(A, pol)
-            n._lib, n._tried = saved
-        finally:
-            del os.environ["SPMV_TPU_NO_NATIVE"]
-        assert nat.n_tiles == ref.n_tiles
-        for f in ("aj_tiles", "ax_tiles", "rel_tiles", "pend_tiles",
-                  "r_start", "lrow", "cnt"):
-            np.testing.assert_array_equal(
-                np.asarray(getattr(nat, f)), np.asarray(getattr(ref, f)),
-                err_msg=f)
-        # Owner maps may differ only where both point at identity slots
-        # (rows with no nonzeros); final y must agree, checked in
-        # kernel tests. For rows with nnz they must match exactly.
-        lens = A.row_lengths()
-        has = lens > 0
-        np.testing.assert_array_equal(
-            np.asarray(nat.owner_idx)[has], np.asarray(ref.owner_idx)[has])
-
-
-class TestEllChunks:
-    def test_matches_numpy_plan(self):
-        from spmv_tpu.kernels.ell import build_ell_plan
-
-        A = power_law_csr(300, 300, 2400, seed=5)
-        rows = np.arange(A.n_rows, dtype=np.int64)
-        nat = build_ell_plan(A, rows, 8)
-        import spmv_tpu.native as n
-
-        saved = n._lib, n._tried
-        n._lib, n._tried = None, True
-        try:
-            ref = build_ell_plan(A, rows, 8)
-        finally:
-            n._lib, n._tried = saved
-        assert nat.n_vrows == ref.n_vrows
-        for f in ("aj", "ax", "valid", "vrow_row"):
-            np.testing.assert_array_equal(
-                np.asarray(getattr(nat, f)), np.asarray(getattr(ref, f)),
-                err_msg=f)
-
-
-class TestPlanScan:
-    def test_streams_match_python(self):
-        """Native spmv_plan_scan produces the exact same scan streams
-        as the Python per-tile loop (routes are compared upstream by
-        the routing tests; colorings may legitimately differ)."""
-        from spmv_tpu import native
-        from spmv_tpu.kernels import stream as st
-        from spmv_tpu.kernels.shuffle import plan_shuffle_auto
-
-        if not native.available():
-            pytest.skip("native library unavailable")
-
-        nnz, n_rows = 400_000, 1 << 16
-        A = power_law_csr(n_rows, n_rows, nnz, alpha=1.5, seed=7)
-        Ap = np.asarray(A.Ap, np.int64)
-        Aj = np.asarray(A.Aj, np.int64)
-        row_ids = np.repeat(np.arange(A.n_rows, dtype=np.int64),
-                            Ap[1:] - Ap[:-1])
-        x_blocks_pad = -(-A.n_cols // (128 * 128))
-        slot_src, _, xb, _ = st._plan_gather(
-            Aj, st.DEFAULT_POLICY, x_blocks_pad)
-        pad_tiles = max(128, -(-xb.shape[0] // 128) * 128)
-        padn = pad_tiles - xb.shape[0]
-        if padn:
-            slot_src = np.concatenate(
-                [slot_src, np.full(padn * st.TILE, -1, np.int64)])
-        kappa = 3072
-        k_starts, bins, r_starts, lrows = st._final_tile_walk(
-            Ap, row_ids, kappa)
-        F = k_starts.shape[0] - 1
-        ftile = np.searchsorted(k_starts, np.arange(nnz), "right") - 1
-        dst = ftile * st.TILE + (np.arange(nnz) - k_starts[ftile])
-        dst_pos = np.full(slot_src.shape[0], -1, np.int64)
-        live = slot_src >= 0
-        dst_pos[live] = dst[slot_src[live]]
-        plan_sh = plan_shuffle_auto(dst_pos, F, sbt=8)
-
-        caps = []
-        orig = st._scan_route_streams
-
-        def capture(*streams):
-            caps.append(tuple(
-                np.array(s) if isinstance(s, np.ndarray) else s
-                for s in streams))
-            return orig(*streams)
-
-        st._scan_route_streams = capture
-        try:
-            st._plan_scan(plan_sh, k_starts, bins, r_starts, lrows,
-                          row_ids)
-            saved = native.available
-            native.available = lambda: False
-            try:
-                st._plan_scan(plan_sh, k_starts, bins, r_starts, lrows,
-                              row_ids)
-            finally:
-                native.available = saved
-        finally:
-            st._scan_route_streams = orig
-
-        nat, ref = caps
-        names = ("perm_src", "relid", "src2e", "src2p", "valid2",
-                 "counts")
-        for name, a, b in zip(names, nat, ref):
-            np.testing.assert_array_equal(
-                np.asarray(a).reshape(-1), np.asarray(b).reshape(-1),
-                err_msg=name)
-
-
 class TestSpgemmSymbolic:
     def test_matches_numpy_symbolic(self):
         import os

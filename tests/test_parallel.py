@@ -110,13 +110,10 @@ def test_overlap_structure_self_independent_of_exchange():
     from spmv_tpu.parallel.dist_spmv import _dist_matvec
 
     d = dist.dev
-    from spmv_tpu import config as _cfg
-
     jaxpr = jax.make_jaxpr(
         lambda *a: _dist_matvec(
             *a, mesh=dist.mesh, axis=dist.axis, R=dist.plan.R,
-            shapes=dist._shapes, sr=__import__("spmv_tpu").PLUS_TIMES,
-            mode="halo", interpret=_cfg.use_interpret(),
+            sr=__import__("spmv_tpu").PLUS_TIMES, mode="halo",
             export_meta=(tuple(int(r) for r in dist.plan.export_rows),
                          False)))(
         d["send_idx"], d["recv_idx"], d["self"], d["halo"],
@@ -158,7 +155,7 @@ def test_nnz_split_hub_row():
 
 def test_bootstrap_single_process():
     """init_distributed is a no-op without a coordinator; make_mesh
-    builds an ICI-ordered mesh over the global device list; put_global
+    builds a flat mesh over the global device list; put_global
     places replicated host data onto it (the multi-host path collapses
     to device_put semantics at process_count=1)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -186,89 +183,24 @@ def test_bootstrap_mesh_feeds_distribute():
                                rtol=2e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("n_devices", [2, 4, 8])
-def test_dist_stream_matches_oracle(n_devices):
-    """The stream-pipeline fast path (parallel/dist_stream) matches
-    the oracle on a power-law matrix with hub-row cuts across shards
-    (VERDICT r3 item 4: the fast pipeline inside shard_map)."""
-    from spmv_tpu.parallel.dist_stream import distribute_stream
+@pytest.mark.parametrize("ring", ["plus_times", "max_plus"])
+def test_shard_matvec_kernel_choice(ring):
+    """Each shard runs the merge-path kernel for a built-in ring and the
+    plain gather + segment reduce for a user-defined one."""
+    import jax.numpy as jnp
 
-    A = power_law_csr(20000, 20000, 150000, alpha=1.5, seed=7)
-    x = np.random.default_rng(3).standard_normal(20000).astype(np.float32)
-    D = distribute_stream(A, _mesh(n_devices))
-    y = np.asarray(D.matvec(x))
-    np.testing.assert_allclose(y, spmv_ref(A, x, np.float64),
-                               rtol=2e-4, atol=1e-4)
-    # comm stays halo-compact
-    assert D.comm_bytes_per_shard <= n_devices * D.plan.B * 4
+    from spmv_tpu import PLUS_TIMES, Semiring
 
-
-def test_dist_stream_semiring_min_plus():
-    """Generic semirings ride the stream fast path in shard_map too
-    (VERDICT r4 item 5): the roll-scan reduce/scan variants run per
-    shard instead of dropping to the ELL path."""
-    from spmv_tpu.ops.semiring import MIN_PLUS, OR_AND
-    from spmv_tpu.parallel.dist_stream import distribute_stream
-
-    A = power_law_csr(5000, 5000, 40000, seed=1)
-    Ax = np.abs(np.asarray(A.Ax)).astype(np.float32)
-    from spmv_tpu.formats import COO, coo_to_csr
-
-    A = coo_to_csr(COO(5000, 5000, A.row_ids(), np.asarray(A.Aj), Ax))
-    x = np.abs(np.random.default_rng(2).standard_normal(5000)
-               ).astype(np.float32)
-    D = distribute_stream(A, _mesh(4))
-    ym = np.asarray(D.matvec(x, semiring=MIN_PLUS))
-    from spmv_tpu.ops.reference import spmv_ref_semiring
-
+    sr = PLUS_TIMES if ring == "plus_times" else Semiring(
+        "max_plus", lambda: float("-inf"), lambda a, x: a + x,
+        lambda acc, v: jnp.maximum(acc, v))
+    A = power_law_csr(300, 300, 3000, seed=13)
+    x = np.random.default_rng(13).standard_normal(300).astype(np.float32)
+    dist = distribute_csr(A, _mesh(4))
+    xd = dist.shard_x(x)
+    jaxpr = str(jax.make_jaxpr(lambda v: dist.matvec(v, semiring=sr))(xd))
+    assert ("merge_path_spmv_plus_times" in jaxpr) == (sr is PLUS_TIMES)
+    y = np.asarray(dist.matvec(xd, semiring=sr))
     np.testing.assert_allclose(
-        ym, spmv_ref_semiring(A, x, MIN_PLUS, y_dtype=np.float32),
-        rtol=2e-5, atol=1e-5)
-    # boolean ring over the same plan
-    Ab = coo_to_csr(COO(5000, 5000, A.row_ids(), np.asarray(A.Aj),
-                        (Ax > 0.5).astype(np.float32)))
-    xb = (x > 1.0).astype(np.float32)
-    Db = distribute_stream(Ab, _mesh(4))
-    yb = np.asarray(Db.matvec(xb, semiring=OR_AND))
-    np.testing.assert_allclose(
-        yb, spmv_ref_semiring(Ab, xb, OR_AND, y_dtype=np.float32),
-        rtol=0, atol=0)
-
-
-def test_dist_stream_multi_extras_depth():
-    """A y block covered by 3+ final tiles gets 2+ extra contributors;
-    each must land (ADVICE r4 high: a flat scatter computed from the
-    old y2d silently dropped all but one). kappa=256 forces a dense
-    128-row block into many tiles."""
-    from spmv_tpu.kernels.stream import StreamPolicy
-    from spmv_tpu.parallel.dist_stream import (
-        build_uniform_plans, distribute_stream)
-    from spmv_tpu.parallel.partition import build_halo_plan
-
-    rng = np.random.default_rng(11)
-    n = 4096
-    # a hot 128-row block: rows 256..383 hold ~6000 nnz over 8
-    # columns; background confined to 512 rows x 8 columns so the
-    # per-(row, col-residue) duplication stays >= the early-reduction
-    # profitability gate on every shard
-    hot_rows = rng.integers(256, 384, 6000)
-    hot_cols = rng.integers(0, 8, 6000)
-    bg_rows = rng.integers(0, 512, 12000)
-    bg_cols = rng.integers(8, 16, 12000)
-    rows = np.concatenate([hot_rows, bg_rows])
-    cols = np.concatenate([hot_cols, bg_cols])
-    vals = rng.standard_normal(rows.size).astype(np.float32)
-    from spmv_tpu.formats import COO, coo_to_csr
-
-    A = coo_to_csr(COO(n, n, rows, cols, vals))
-    pol = StreamPolicy(kappa=256)
-    D = distribute_stream(A, _mesh(2), policy=pol)
-    # the stress is only real if some shard carries depth >= 2
-    uni = build_uniform_plans(A, build_halo_plan(A, 2, balance="nnz"),
-                              policy=pol)
-    assert uni.dev["fix_out"].shape[1] >= 2, (
-        "test matrix no longer produces depth-2 extras; deepen it")
-    x = rng.standard_normal(n).astype(np.float32)
-    y = np.asarray(D.matvec(x))
-    np.testing.assert_allclose(y, spmv_ref(A, x, np.float64),
-                               rtol=2e-4, atol=1e-4)
+        y, spmv_ref_semiring(A, x, sr, y_dtype=np.float64), rtol=2e-5,
+        atol=1e-5)

@@ -96,8 +96,8 @@ def test_kernel_on_reordered_matrix():
 
 
 def test_rcm_shrinks_column_window_count():
-    # The stream planner's gather cost scales with how many distinct
-    # 128-wide x windows each row block touches; RCM should cut it.
+    # x-gather locality: how many distinct 128-wide x windows each
+    # row block touches; RCM should cut it.
     A_shuf, _ = _shuffled_banded(n=1024, bw=4, seed=5)
     B, _ = rcm_reorder(A_shuf)
 

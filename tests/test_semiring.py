@@ -80,8 +80,8 @@ def test_unsupported_semiring_kind_raises():
 def test_max_times_negative_products_folds_identity():
     """max_times has identity 0: a row whose products are ALL negative
     must come out 0 (the oracle's acc = initialize() participates in
-    every row, ref: cpu_navie.hpp:20-35). Regression: the stream
-    pipeline skipped the fold and returned the max negative product."""
+    every row, ref: cpu_navie.hpp:20-35). Regression: a kernel that
+    skips the fold returns the max negative product."""
     from spmv_tpu import spmv
     from spmv_tpu.io.generate import power_law_csr
     from spmv_tpu.ops.reference import spmv_ref_semiring

@@ -1,8 +1,8 @@
 """SpGEMM tests: pattern + values vs scipy, semiring products.
 
-North-star component (SURVEY §7.5, VERDICT r1 item 5): CSR x CSR with
-a host symbolic phase and device numeric phase riding the stream
-pipeline (virtual-CSR reduction; see kernels/spgemm.py).
+North-star component (SURVEY §7.5): CSR x CSR with a host symbolic
+phase and a device numeric phase on the plain path (virtual-CSR
+reduction; see kernels/spgemm.py).
 """
 
 import numpy as np
@@ -21,8 +21,8 @@ def _to_scipy(A):
         shape=A.shape)
 
 
-def _check_plus_times(A, B, method="auto"):
-    C = spgemm(A, B, method=method)
+def _check_plus_times(A, B):
+    C = spgemm(A, B)
     C_ref = (_to_scipy(A) @ _to_scipy(B)).sorted_indices()
     Cs = _to_scipy(C)
     # pattern: ours keeps structural zeros; scipy's @ does too (it only
@@ -32,11 +32,11 @@ def _check_plus_times(A, B, method="auto"):
     np.testing.assert_allclose(Cs.data, C_ref.data, rtol=2e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("method", ["xla", "stream", "auto"])
-def test_spgemm_random(method):
-    A = random_csr(300, 400, 3000, seed=1)
-    B = random_csr(400, 250, 2800, seed=2)
-    _check_plus_times(A, B, method)
+@pytest.mark.parametrize("seed", [1, 3])
+def test_spgemm_random(seed):
+    A = random_csr(300, 400, 3000, seed=seed)
+    B = random_csr(400, 250, 2800, seed=seed + 1)
+    _check_plus_times(A, B)
 
 
 def test_spgemm_power_law():
@@ -102,23 +102,3 @@ def test_spgemm_plan_cached_and_value_correct_for_distinct_B():
     _check_plus_times(A, B1)
     _check_plus_times(A, B2)  # distinct plan per B identity
     _check_plus_times(A, B1)  # cached plan still valid
-
-
-def test_auto_uses_xla_until_stream_planned():
-    """'auto' must not pay the O(nnz) stream plan build for a one-shot
-    product; after an explicit method='stream' call, the same (A, B)
-    pair rides the cached plan on later auto calls."""
-    from spmv_tpu.kernels.spgemm import _plan, _stream_planned, spgemm
-    from spmv_tpu.io.generate import random_csr
-
-    A = random_csr(300, 200, 2000, seed=5)
-    B = random_csr(200, 250, 2000, seed=6)
-    C1 = spgemm(A, B, method="auto")
-    assert not _stream_planned(_plan(A, B)["V"])
-    C2 = spgemm(A, B, method="stream")
-    assert _stream_planned(_plan(A, B)["V"])
-    C3 = spgemm(A, B, method="auto")  # now rides the stream plan
-    np.testing.assert_allclose(np.asarray(C1.Ax), np.asarray(C2.Ax),
-                               rtol=2e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(C1.Ax), np.asarray(C3.Ax),
-                               rtol=2e-4, atol=1e-4)

@@ -1,8 +1,5 @@
-"""Tests for SpMM (kernels/spmm.py).
-
-Matrices stay small: the stream path runs on the 128x Kronecker
-expansion, so interpret-mode cost is ~128x the nnz count.
-"""
+"""Tests for SpMM (kernels/spmm.py): ragged and single-column B,
+empty matrices, skew and semirings against a dense float64 product."""
 
 import numpy as np
 import pytest
@@ -10,7 +7,6 @@ import pytest
 from spmv_tpu import MIN_PLUS, spmm
 from spmv_tpu.formats import COO, coo_to_csr
 from spmv_tpu.io.generate import banded_csr, random_csr
-from spmv_tpu.kernels.spmm import _kron_expand
 
 
 def _ref(A, X):
@@ -18,48 +14,27 @@ def _ref(A, X):
     return d @ X.astype(np.float64)
 
 
-def _check(A, B=128, method="stream", seed=0, rtol=2e-4, atol=1e-4):
+def _check(A, B=128, seed=0, rtol=2e-4, atol=1e-4):
     rng = np.random.default_rng(seed)
     X = rng.standard_normal((A.n_cols, B)).astype(np.float32)
-    Y = np.asarray(spmm(A, X, method=method))
+    Y = np.asarray(spmm(A, X))
     np.testing.assert_allclose(Y, _ref(A, X), rtol=rtol, atol=atol)
-
-
-def test_kron_expand_matches_dense():
-    A = random_csr(40, 30, 200, seed=0)
-    Ak = _kron_expand(A)
-    dk = Ak.to_dense()
-    d = A.to_dense()
-    want = np.kron(d, np.eye(128, dtype=d.dtype))
-    np.testing.assert_array_equal(dk, want)
-
-
-def test_spmm_stream_random():
-    _check(random_csr(600, 500, 5000, seed=1))
-
-
-def test_spmm_stream_ragged_B():
-    _check(random_csr(400, 350, 3000, seed=3), B=70)
-
-
-def test_spmm_stream_banded():
-    _check(banded_csr(1500, bandwidth=1, seed=4))
 
 
 def test_spmm_xla_matches():
     A = random_csr(1200, 1000, 10000, seed=5)
-    _check(A, method="xla")
+    _check(A)
 
 
 def test_spmm_xla_wide_B():
-    _check(random_csr(800, 700, 6000, seed=2), B=256, method="xla")
+    _check(random_csr(800, 700, 6000, seed=2), B=256)
 
 
 def test_spmm_semiring():
     A = banded_csr(600, bandwidth=1, seed=6)  # no duplicate coordinates
     rng = np.random.default_rng(6)
     X = rng.standard_normal((A.n_cols, 128)).astype(np.float32)
-    Y = np.asarray(spmm(A, X, semiring=MIN_PLUS, method="stream"))
+    Y = np.asarray(spmm(A, X, semiring=MIN_PLUS))
     d = A.to_dense().astype(np.float64)
     mask = d != 0
     full = np.where(mask, d, np.inf)
@@ -76,38 +51,35 @@ def test_spmm_empty_rows():
     _check(A)
 
 
-# --- window path (the O(nnz)-plan real kernel) ---
-
 def test_spmm_window_random():
-    _check(random_csr(600, 500, 5000, seed=8), method="window")
+    _check(random_csr(600, 500, 5000, seed=8))
 
 
 def test_spmm_window_skewed():
     from spmv_tpu.io.generate import power_law_csr
 
-    _check(power_law_csr(800, 700, 8000, alpha=1.5, seed=9),
-           method="window")
+    _check(power_law_csr(800, 700, 8000, alpha=1.5, seed=9))
 
 
 def test_spmm_window_small_cols():
-    # n_cols < 128: a single partial X window
-    _check(random_csr(300, 90, 1500, seed=10), method="window")
+    # n_cols < 128
+    _check(random_csr(300, 90, 1500, seed=10))
 
 
 def test_spmm_window_ragged_B():
-    _check(random_csr(400, 350, 3000, seed=11), B=70, method="window")
-    _check(random_csr(400, 350, 3000, seed=12), B=200, method="window")
+    _check(random_csr(400, 350, 3000, seed=11), B=70)
+    _check(random_csr(400, 350, 3000, seed=12), B=200)
 
 
 def test_spmm_window_B1():
-    _check(random_csr(500, 400, 4000, seed=13), B=1, method="window")
+    _check(random_csr(500, 400, 4000, seed=13), B=1)
 
 
 def test_spmm_window_semiring():
     A = banded_csr(600, bandwidth=1, seed=14)
     rng = np.random.default_rng(14)
     X = rng.standard_normal((A.n_cols, 128)).astype(np.float32)
-    Y = np.asarray(spmm(A, X, semiring=MIN_PLUS, method="window"))
+    Y = np.asarray(spmm(A, X, semiring=MIN_PLUS))
     d = A.to_dense().astype(np.float64)
     mask = d != 0
     full = np.where(mask, d, np.inf)
@@ -119,14 +91,8 @@ def test_spmm_window_empty():
     import jax.numpy as jnp
 
     from spmv_tpu.formats import CSR
-    from spmv_tpu.kernels.spmm import spmm_window
 
     A = CSR(10, 8, np.zeros(11, np.int32), np.zeros(0, np.int32),
             np.zeros(0, np.float32))
-    Y = np.asarray(spmm_window(A, jnp.zeros((8, 5), jnp.float32)))
+    Y = np.asarray(spmm(A, jnp.zeros((8, 5), jnp.float32)))
     np.testing.assert_array_equal(Y, np.zeros((10, 5)))
-
-
-def test_spmm_auto_prefers_window():
-    # auto must produce correct results through the window path
-    _check(random_csr(700, 600, 6000, seed=15), method="auto")
